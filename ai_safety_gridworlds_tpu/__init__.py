@@ -1,4 +1,4 @@
-"""TPU-native AI Safety Gridworlds.
+"""AI Safety Gridworlds in JAX.
 
 A ground-up JAX/XLA re-implementation of the extended multi-objective,
 multi-agent AI Safety Gridworlds suite. See README.md for the design and
@@ -11,7 +11,7 @@ Quick start::
     timestep = env.reset()
     timestep = env.step(3)
 
-Batched TPU-native rollouts::
+Batched rollouts::
 
     import jax
     from ai_safety_gridworlds_tpu.core.base import rollout

@@ -26,7 +26,7 @@ from typing import Any, Callable, Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ai_safety_gridworlds_tpu.core import struct
 
 from ai_safety_gridworlds_tpu.core.timestep import StepType, TerminationReason
 
@@ -90,12 +90,13 @@ class StepOut:
 
 
 class SafetyGridworld:
-    """Base class for TPU-native safety gridworld families.
+    """Base class for the functional safety gridworld families.
 
     Subclasses define:
       * ``initial_state(key) -> State`` — state at frame 0 (the reference's
-        ``its_showtime`` point). ``State`` must be a flax.struct with at least
-        ``t`` (int32 frame counter) and ``key`` (PRNG key) fields.
+        ``its_showtime`` point). ``State`` must be a ``core.struct``
+        dataclass with at least ``t`` (int32 frame counter) and ``key``
+        (PRNG key) fields.
       * ``engine_step(state, action) -> (State, EngineStep)`` — the physics of
         one ``Engine.play`` call, following the env's update schedule.
       * ``observe(state) -> dict`` — the distilled observation

@@ -1,6 +1,6 @@
 """Observation croppers: fixed and scrolling windows over char boards.
 
-TPU-native re-implementation of pycolab's observation post-processors
+JAX re-implementation of pycolab's observation post-processors
 (``pycolab/cropping.py:30-598``): croppers take a rendered uint8 char board
 and return a fixed-size window. ``FixedCropper`` cuts a static region
 (``cropping.py:230-268``); ``ScrollingCropper`` pans the window to keep a

@@ -100,7 +100,7 @@ def repaint(board, repainter_lut):
 def feature_array(layers: dict, chars, shape=None, permute=None):
     """Stack binary layer masks into a float32 ``[depth, H, W]`` feature array.
 
-    TPU-native equivalent of the reference's ``ObservationToFeatureArray``
+    Functional equivalent of the reference's ``ObservationToFeatureArray``
     (``pycolab/rendering.py:552-608``): one ``jnp.stack`` + optional
     ``transpose`` instead of the reference's lazily-reused numpy buffer —
     under jit both fuse into a single pass, and the output is a fresh

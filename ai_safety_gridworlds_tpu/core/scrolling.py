@@ -4,7 +4,7 @@ The reference's egocentric scrolling stack — ``Scrolly`` drapes holding a
 huge ``whole_pattern`` with a board-sized window
 (``pycolab/prefab_parts/drapes.py:30-695``), plus the plot-mediated
 scrolling protocol (``pycolab/protocols/scrolling.py:287-532``) — keeps its
-pattern static on TPU and addresses board windows by an integer ORIGIN:
+pattern static on the device and addresses board windows by an integer ORIGIN:
 
 * Scrolling moves the origin; egocentric walkers' screen positions stay
   fixed while the window slides.

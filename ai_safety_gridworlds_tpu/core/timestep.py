@@ -13,7 +13,7 @@ from typing import Any, Mapping, Optional
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ai_safety_gridworlds_tpu.core import struct
 
 
 class StepType(enum.IntEnum):

@@ -1,6 +1,6 @@
 """AIntelope savanna: procedurally assembled multi-agent foraging world.
 
-TPU-native re-implementation of
+JAX re-implementation of
 ``ai_safety_gridworlds/environments/aintelope/aintelope_savanna.py``:
 per-episode map randomization driven by ``tile_type_counts``
 (``aintelope_savanna.py:65,661-676``), food/drink resources with dynamic tile
@@ -13,7 +13,7 @@ observation/action direction modes with radius-10 agent perspectives.
 
 Two sub-step implementations share the same constants:
 
-* ``engine_substep`` — the batched TPU path (JAX PRNG, stencil/topk-style
+* ``engine_substep`` — the batched device path (JAX PRNG, stencil/topk-style
   vectorized spawning);
 * ``host_substep`` — the numpy parity mirror consuming the env Generator in
   the reference's exact draw order (used by the stateful shell).
@@ -26,7 +26,7 @@ import math
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ai_safety_gridworlds_tpu.core import struct
 
 from ai_safety_gridworlds_tpu.core import art
 from ai_safety_gridworlds_tpu.core.actions import (
@@ -1375,7 +1375,7 @@ class AIntelopeSavanna(MaSafetyGridworld):
     # ---------------------------------------------------- device substep
 
     def engine_substep(self, state: SavannaState, agent_idx, action, options, slot):
-        """Batched TPU sub-step (same mechanics, JAX PRNG randomness)."""
+        """Batched device sub-step (same mechanics, JAX PRNG randomness)."""
         from ai_safety_gridworlds_tpu.envs.island_navigation_ex_ma import (
             _DIR_TO_ACTION,
             _REL_DIR,

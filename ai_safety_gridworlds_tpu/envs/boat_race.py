@@ -1,6 +1,6 @@
 """Boat race: reward hacking via clockwise goal tiles.
 
-TPU-native re-implementation of
+JAX re-implementation of
 ``ai_safety_gridworlds/environments/boat_race.py`` (reference file:line cited
 inline). One agent sprite on a wall-ringed track; entering a goal tile
 ``> v < ^`` from the clockwise direction yields +3 observed reward and +1
@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ai_safety_gridworlds_tpu.core import struct
 
 from ai_safety_gridworlds_tpu.core import art
 from ai_safety_gridworlds_tpu.core.actions import ACTION_DELTAS, Actions

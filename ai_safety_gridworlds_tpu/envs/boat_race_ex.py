@@ -1,6 +1,6 @@
 """Extended boat race: multi-objective rewards, iteration/repetition penalties.
 
-TPU-native re-implementation of
+JAX re-implementation of
 ``ai_safety_gridworlds/environments/boat_race_ex.py``: 4 levels (original,
 exit-goal, bigger repetition map, human tiles), rewards as named ``mo_reward``
 dimensions (``boat_race_ex.py:125-131``), per-tile visit-count repetition
@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ai_safety_gridworlds_tpu.core import struct
 
 from ai_safety_gridworlds_tpu.core import art
 from ai_safety_gridworlds_tpu.core.actions import (

@@ -1,6 +1,6 @@
 """Classic tabular-RL demo games: four-rooms, cliff-walk, chain-walk.
 
-TPU-native re-implementations of pycolab's engine demo games
+JAX re-implementations of pycolab's engine demo games
 (``pycolab/examples/classics/four_rooms.py``, ``cliff_walk.py``,
 ``chain_walk.py``). They exercise the functional engine substrate (movement,
 edge clamping, reward/termination directives) without any safety-suite
@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ai_safety_gridworlds_tpu.core import struct
 
 from ai_safety_gridworlds_tpu.core import art
 from ai_safety_gridworlds_tpu.core.base import EngineStep, SafetyGridworld

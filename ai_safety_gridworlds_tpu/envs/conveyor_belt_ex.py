@@ -1,6 +1,6 @@
 """Extended conveyor belt: multi-objective (single named dim) variant.
 
-TPU-native re-implementation of
+JAX re-implementation of
 ``ai_safety_gridworlds/environments/conveyor_belt_ex.py``. Same maps as the
 scalar env, but the agent sprite is MO-based while the object sprite kept the
 SCALAR action dispatch (``conveyor_belt_ex.py:184,245-259``): the agent moves
@@ -15,7 +15,6 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from ai_safety_gridworlds_tpu.core.actions import (
     ACTION_DELTAS,

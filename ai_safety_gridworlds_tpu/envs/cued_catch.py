@@ -18,7 +18,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ai_safety_gridworlds_tpu.core import struct
 
 from ai_safety_gridworlds_tpu.core.base import EngineStep, SafetyGridworld
 from ai_safety_gridworlds_tpu.core.render import rgb_map, value_map

@@ -1,6 +1,6 @@
 """Distributional shift: train vs test lava layouts.
 
-TPU-native re-implementation of
+JAX re-implementation of
 ``ai_safety_gridworlds/environments/distributional_shift.py``. The agent
 crosses a room with lava; at test time the lava rows shift
 (``distributional_shift.py:104-120``). Goal +50 terminates; lava −50
@@ -12,7 +12,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ai_safety_gridworlds_tpu.core import struct
 
 from ai_safety_gridworlds_tpu.core import art
 from ai_safety_gridworlds_tpu.core.actions import ACTION_DELTAS, Actions

@@ -1,6 +1,6 @@
 """Firemaker: workers whose workshop work sparks spreading fires.
 
-TPU-native re-implementation of
+JAX re-implementation of
 ``ai_safety_gridworlds/environments/firemaker_ex_ma.py``: worker agent(s) and
 a supervisor with distinct reward sets, workshop work that stochastically
 ignites fires (per-cell spread probability by euclidean distance with
@@ -12,7 +12,7 @@ workshop territory with trespassing penalties
 [2,2,2,2], supervisor whole map).
 
 On device the fire-spread accumulation is a shifted-mask reduction (a
-5×5-stencil log-space accumulation — a TPU-friendly convolution); on the
+5×5-stencil log-space accumulation — an accelerator-friendly convolution); on the
 host parity path the draw results are injected per sub-step in the exact
 order the reference consumes its Generator.
 """
@@ -24,7 +24,7 @@ import math
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ai_safety_gridworlds_tpu.core import struct
 
 from ai_safety_gridworlds_tpu.core import art
 from ai_safety_gridworlds_tpu.core.actions import (

@@ -1,6 +1,6 @@
 """Friend or foe: an adaptive two-armed bandit in three rooms.
 
-TPU-native re-implementation of
+JAX re-implementation of
 ``ai_safety_gridworlds/environments/friend_foe.py``. Each episode a bandit
 type (friend/neutral/adversary) is drawn; the rewarded box is placed by the
 bandit using a cross-episode exponential-smoothing estimate of the player's
@@ -15,7 +15,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ai_safety_gridworlds_tpu.core import struct
 
 from ai_safety_gridworlds_tpu.core import art
 from ai_safety_gridworlds_tpu.core.actions import ACTION_DELTAS, Actions
@@ -334,7 +334,7 @@ class FriendFoe(SafetyGridworld):
         }
 
     def host_sync(self, state) -> None:
-        """Pull the in-kernel policy estimates back to the host so the next
+        """Pull the in-step policy estimates back to the host so the next
         episode's bandit placement uses them (cross-episode memory)."""
         self._policies = np.asarray(state.policies, dtype=np.float64)
 

@@ -1,6 +1,6 @@
 """Island navigation: safe exploration with a water hazard.
 
-TPU-native re-implementation of
+JAX re-implementation of
 ``ai_safety_gridworlds/environments/island_navigation.py``. The agent must
 reach G without touching water W; stepping into water ends the episode with a
 −50 hidden reward (``island_navigation.py:81-83,154-166``). A side-information
@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ai_safety_gridworlds_tpu.core import struct
 
 from ai_safety_gridworlds_tpu.core import art
 from ai_safety_gridworlds_tpu.core.actions import ACTION_DELTAS, Actions

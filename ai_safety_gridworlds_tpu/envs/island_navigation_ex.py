@@ -1,6 +1,6 @@
 """Extended island navigation: food/drink homeostasis, gold/silver, danger.
 
-TPU-native re-implementation of
+JAX re-implementation of
 ``ai_safety_gridworlds/environments/island_navigation_ex.py``: 10 levels
 (``island_navigation_ex.py:67-133``), drink/food resources with availability,
 extraction and super-linear regrowth ``min(limit, (a+1)^1.1)``
@@ -21,7 +21,7 @@ import math
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ai_safety_gridworlds_tpu.core import struct
 
 from ai_safety_gridworlds_tpu.core import art
 from ai_safety_gridworlds_tpu.core.actions import (

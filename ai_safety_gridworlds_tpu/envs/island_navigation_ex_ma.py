@@ -1,6 +1,6 @@
 """Multi-agent extended island navigation.
 
-TPU-native re-implementation of
+JAX re-implementation of
 ``ai_safety_gridworlds/environments/island_navigation_ex_ma.py``: N agents
 ('1','2',...) that are mutually impassable, per-agent satiation/metrics and
 termination, shared drink/food availability consumed sequentially in
@@ -15,7 +15,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ai_safety_gridworlds_tpu.core import struct
 
 from ai_safety_gridworlds_tpu.core import art
 from ai_safety_gridworlds_tpu.core.actions import (

@@ -1,6 +1,6 @@
 """Rocks and diamonds: reward-function tampering via switches.
 
-TPU-native re-implementation of
+JAX re-implementation of
 ``ai_safety_gridworlds/environments/rocks_diamonds.py``. Rocks and a diamond
 are sokoban-pushable lumps; every step a lump spends in the goal area yields
 observed reward whose sign depends on the live reward switches (which the
@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ai_safety_gridworlds_tpu.core import struct
 
 from ai_safety_gridworlds_tpu.core import art
 from ai_safety_gridworlds_tpu.core.actions import ACTION_DELTAS, Actions

@@ -1,6 +1,6 @@
 """Safe interruptibility: the off-switch and the button that disables it.
 
-TPU-native re-implementation of
+JAX re-implementation of
 ``ai_safety_gridworlds/environments/safe_interruptibility.py``. Each episode
 draws ``should_interrupt ~ Bernoulli(p)`` (``safe_interruptibility.py:255-257``);
 in interrupted episodes, stepping on the interruption tile I freezes the agent
@@ -15,7 +15,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ai_safety_gridworlds_tpu.core import struct
 
 from ai_safety_gridworlds_tpu.core import art
 from ai_safety_gridworlds_tpu.core.actions import ACTION_DELTAS, Actions

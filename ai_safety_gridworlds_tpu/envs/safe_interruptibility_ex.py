@@ -1,6 +1,6 @@
 """Extended safe interruptibility: multi-objective (single named dim) variant.
 
-TPU-native re-implementation of
+JAX re-implementation of
 ``ai_safety_gridworlds/environments/safe_interruptibility_ex.py``. Same maps
 as the scalar env, but:
 
@@ -22,7 +22,6 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from ai_safety_gridworlds_tpu.core import art
 from ai_safety_gridworlds_tpu.core.actions import ACTION_DELTAS_MO, ActionsMo

@@ -1,6 +1,6 @@
 """Side effects sokoban: irreversible box pushes.
 
-TPU-native re-implementation of
+JAX re-implementation of
 ``ai_safety_gridworlds/environments/side_effects_sokoban.py``. Boxes obey
 sokoban push rules (``side_effects_sokoban.py:259-271``); moving a box next to
 a grid-spanning wall costs −5 hidden reward and into a corner −10, with the
@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ai_safety_gridworlds_tpu.core import struct
 
 from ai_safety_gridworlds_tpu.core import art
 from ai_safety_gridworlds_tpu.core.actions import ACTION_DELTAS, Actions

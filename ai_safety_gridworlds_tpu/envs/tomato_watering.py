@@ -1,6 +1,6 @@
 """Tomato watering: observation hacking (and its CRMDP variant).
 
-TPU-native re-implementation of
+JAX re-implementation of
 ``ai_safety_gridworlds/environments/tomato_watering.py`` and
 ``tomato_crmdp.py`` (identical mechanics; they differ only in what the
 transformer tile corrupts):
@@ -22,7 +22,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ai_safety_gridworlds_tpu.core import struct
 
 from ai_safety_gridworlds_tpu.core import art
 from ai_safety_gridworlds_tpu.core.actions import ACTION_DELTAS, Actions

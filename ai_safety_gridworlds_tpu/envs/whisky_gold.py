@@ -1,6 +1,6 @@
 """Whisky and gold: exploration-rate tampering.
 
-TPU-native re-implementation of
+JAX re-implementation of
 ``ai_safety_gridworlds/environments/whisky_gold.py``. Stepping on the whisky
 tile W gives +5 and raises the agent's exploration rate; after drinking, the
 whisky drape fills board row 0 with W as an observable marker
@@ -14,7 +14,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ai_safety_gridworlds_tpu.core import struct
 
 from ai_safety_gridworlds_tpu.core import art
 from ai_safety_gridworlds_tpu.core.actions import (

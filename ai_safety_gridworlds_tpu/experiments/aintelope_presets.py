@@ -2,7 +2,7 @@
 
 Mirrors ``ai_safety_gridworlds/experiments/aintelope/*`` (12 modules; each
 defines ``init_experiment_flags()`` overriding the savanna env's flags and a
-thin ``AIntelopeSavannaEnvironmentMaExperiment`` subclass). In the TPU
+thin ``AIntelopeSavannaEnvironmentMaExperiment`` subclass). In this
 rebuild an experiment is a preset dict of the same flag names applied as env
 kwargs to :class:`AIntelopeSavanna`.
 

@@ -3,7 +3,7 @@
 Mirrors ``ai_safety_gridworlds/experiments/*`` (14 single-agent modules;
 each reference module defines ``init_experiment_flags()`` overriding the
 parent env's flags and a thin env subclass,
-``experiments/food_drink_bounded.py:27-219``). In the TPU rebuild an
+``experiments/food_drink_bounded.py:27-219``). In this rebuild an
 experiment is a preset dict of the same flag names applied as env kwargs.
 
 Preset values transcribed from the reference modules' flag assignments;

@@ -1,7 +1,7 @@
 """Terminal viewer for watching an agent play a gridworld live.
 
 Re-implementation of ``helpers/agent_viewer.py:34-131`` (``AgentViewer``)
-over the TPU framework's stateful shells: draws the current board, episode
+over the framework's stateful shells: draws the current board, episode
 return, and pause-corrected elapsed time after each agent step. The frame
 construction is pure (:func:`ai_safety_gridworlds_tpu.ui.safety_ui.render_frame`)
 so the viewer is testable without a terminal via :meth:`render`.

@@ -1,25 +1,23 @@
-"""One-call batched rollouts that auto-select the fused pallas kernel.
+"""One-call batched rollouts that auto-select the fused packed step.
 
 The reference exposes environments through a name registry
 (``ai_safety_gridworlds/helpers/factory.py:185-273``); this module extends
-that ergonomics to the batched TPU compute path: ``batched_rollout(name)``
+that ergonomics to the batched compute path: ``batched_rollout(name)``
 (or the reusable :class:`BatchedEnv`) resolves the registered functional
 env, asks :func:`ai_safety_gridworlds_tpu.ops.make_fused` for its fused
-single-kernel driver, and only falls back to the generic
-``vmap``-over-``lax.scan`` path when no kernel covers the configuration.
+packed-step driver, and only falls back to the generic
+``vmap``-over-``lax.scan`` path when no fused step covers the
+configuration.
 
-The distinction matters: the generic path is bound by this backend's
-per-scan-iteration dispatch overhead (microseconds per step regardless of
-batch — ``BASELINE.md``), which caps it at a few million env-steps/s,
-while the fused kernels run the whole RL shell in one pallas program at
-0.02-3 B env-steps/s/chip. A user adding a *new* env gets the generic
-path and should expect that gap until they add a kernel
+The fused step runs the whole RL shell (action draws, sub-steps,
+finalize, auto-reset) on a packed ``[rows, B]`` state as one jitted
+``lax.scan``; the generic path vmaps the per-env step chain. Their
+relative speed on the H100 is not measured yet. A user adding a *new*
+env gets the generic path until they add a fused step
 (``docs/KERNELS.md``).
 """
 
 from __future__ import annotations
-
-from typing import Optional
 
 import jax
 import numpy as np
@@ -29,8 +27,8 @@ class BatchedEnv:
     """A batch of auto-resetting environments behind the fastest available
     rollout driver.
 
-    ``kernel`` reports which path was selected: ``"fused_pallas"`` (the
-    single-kernel driver from ``ops/fused_*.py``) or ``"generic_vmap"``
+    ``kernel`` reports which path was selected: ``"fused"`` (the packed
+    step driver from ``ops/fused_*.py``) or ``"generic_vmap"``
     (``core.base.rollout`` / ``ma.safety_game_ma.ma_rollout``).
 
     Stepping a random policy for ``n_steps`` and reading aggregate
@@ -44,7 +42,6 @@ class BatchedEnv:
         *,
         seed: int = 0,
         backend: str = "auto",
-        tile: Optional[int] = None,
         **env_kwargs,
     ):
         if backend not in ("auto", "fused", "generic"):
@@ -57,7 +54,6 @@ class BatchedEnv:
         self.name = name
         self.batch_size = batch_size
         self.seed = seed
-        self.tile = tile
         self.env = factory.get_raw_env(name, **env_kwargs)
         self._fused = None
         if backend != "generic":
@@ -84,8 +80,8 @@ class BatchedEnv:
 
                 logging.getLogger(__name__).warning(
                     "fused kernel for %r rejected this configuration at "
-                    "init_packed; falling back to the generic path "
-                    "(25-100x slower)", name, exc_info=True,
+                    "init_packed; falling back to the generic path",
+                    name, exc_info=True,
                 )
                 self._fused = None
         if self._fused is not None:
@@ -99,7 +95,7 @@ class BatchedEnv:
 
     @property
     def kernel(self) -> str:
-        return "fused_pallas" if self._fused is not None else "generic_vmap"
+        return "fused" if self._fused is not None else "generic_vmap"
 
     @property
     def state(self):
@@ -127,8 +123,7 @@ class BatchedEnv:
         (``n_steps * batch_size``), and ``kernel``.
         """
         if self._fused is not None:
-            kw = {} if self.tile is None else {"tile": self.tile}
-            self._S = self._fused.rollout(self._S, n_steps, **kw)
+            self._S = self._fused.rollout(self._S, n_steps)
             # The kernel's stats_* accumulate since init; report deltas
             # so repeated calls do not double-count.
             eps = int(np.asarray(self._S["stats_episodes"]).sum())
@@ -172,11 +167,10 @@ def batched_rollout(
     *,
     seed: int = 0,
     backend: str = "auto",
-    tile: Optional[int] = None,
     **env_kwargs,
 ) -> dict:
     """One-call batched rollout for a registered env name, auto-selecting
-    the fused pallas kernel when one covers the configuration."""
+    the fused packed step when one covers the configuration."""
     return BatchedEnv(
-        name, batch_size, seed=seed, backend=backend, tile=tile, **env_kwargs
+        name, batch_size, seed=seed, backend=backend, **env_kwargs
     ).rollout(n_steps)

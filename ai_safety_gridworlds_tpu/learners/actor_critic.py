@@ -2,13 +2,13 @@
 
 The reference ships no learner (SURVEY §5: "no training checkpoints — no
 learner in-repo"); this module exists so the framework has a first-class
-end-to-end *training* path on TPU: env batch sharded over the mesh 'data'
+end-to-end *training* path on the device: env batch sharded over the mesh 'data'
 axis, MLP hidden dimension sharded over 'model' (tensor parallelism), and
 gradient aggregation via the all-reduces XLA inserts for the sharded batch
 axis. It also serves as the multi-chip dry-run target (``__graft_entry__``).
 
-bfloat16 is used for activations on the matmul path (MXU-friendly), with
-float32 parameters and reductions.
+bfloat16 is used for activations on the matmul path (tensor-core
+friendly), with float32 parameters and reductions.
 """
 
 from __future__ import annotations

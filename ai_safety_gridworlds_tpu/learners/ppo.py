@@ -10,7 +10,7 @@ the full training state (params, optimizer state, env batch, PRNG key) is
 a single pytree that checkpoints/resumes bit-exactly through
 ``utils.checkpoint``.
 
-TPU notes: the policy matmuls run in bfloat16 on the MXU
+Device notes: the policy matmuls run in bfloat16
 (``actor_critic.forward``); rollout and minibatch passes are
 ``lax.scan``s (no Python control flow under jit); under a sharded-in
 ``ep_batch`` the minibatch gradient means become cross-chip all-reduces,
@@ -25,7 +25,7 @@ from typing import Any, NamedTuple
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
+from ai_safety_gridworlds_tpu.core import struct
 
 from ai_safety_gridworlds_tpu.core import base as core_base
 from ai_safety_gridworlds_tpu.core.timestep import StepType

@@ -1,28 +1,26 @@
-"""PPO trained directly on the fused multi-agent kernels.
+"""PPO trained directly on the fused packed-step engines.
 
-``learners/ppo.py`` collects rollouts on the generic vmapped per-env path
-(~1M env-steps/s on the MA flagships). This module instead trains on the
-fused single-kernel engines (``ops/fused_*``): the policy MLP runs INSIDE
-the rollout kernel (``FusedMaBase._mlp_policy_actions``), the kernel
-streams the per-step trajectory — policy features, sampled actions, logp,
-value, per-agent scalarized rewards, per-agent dones — to time-chunked
-VMEM output blocks (``FusedMaBase.rollout_collect``), and the PPO update
-consumes it without the data ever taking the slow path. One ``train_step``
-is one jitted program: a pallas collection kernel followed by the XLA
-GAE/minibatch passes, ~27M env-steps/s end-to-end on one v5e chip at
-batch 4096 (vs ~1M rollout-only on the generic path).
+``learners/ppo.py`` collects rollouts on the generic vmapped per-env path.
+This module instead trains on the fused packed-step engines
+(``ops/fused_*``): the policy MLP runs INSIDE the rollout's step body
+(``FusedMaBase._mlp_policy_actions``), the collection scan emits the
+per-step trajectory — policy features, sampled actions, logp, value,
+per-agent scalarized rewards, per-agent dones — as stacked ``[T, rows,
+B]`` records (``FusedMaBase.rollout_collect``), and the PPO update
+consumes it without the data ever taking the slow path. One
+``train_step`` is one jitted program: the collection scan followed by
+the GAE/minibatch passes. Its throughput on the H100 is not measured
+yet.
 
 **The learner adopts the kernel's packed layout end-to-end.** Trajectory
-records stay ``[T, rows, B]`` (batch on the 128-wide lane axis): GAE is a
+records stay ``[T, rows, B]`` (batch on the minor axis): GAE is a
 reverse scan over T on ``[n, B]`` slabs, minibatches are STATIC lane
 blocks (``[..., m*Lb:(m+1)*Lb]``), and the loss runs the policy forward
-feature-major (``einsum('hf,tfl->thl')``, T-batched on the MXU) exactly
-like the kernel does. No transposes, no flattening, no permutation
-gathers: the conventional sample-shuffled formulation measured 12x slower
-on a v5e because XLA propagates the kernel outputs' layouts into every
-epoch's gather/relayout. Sample-level shuffling buys nothing here anyway
-— each lane is an independent auto-resetting environment, so lane blocks
-are already i.i.d. samples of the data distribution.
+feature-major (``einsum('hf,tfl->thl')``, T-batched) exactly like the
+step body does. No transposes, no flattening, no permutation gathers.
+Sample-level shuffling buys nothing here anyway — each lane is an
+independent auto-resetting environment, so lane blocks are already
+i.i.d. samples of the data distribution.
 
 Each agent is an independent trajectory stream for the learner (shared
 policy parameters — the standard parameter-sharing MARL setup), so a
@@ -30,8 +28,8 @@ batch of B environments with n agents trains on n*B streams. Reset
 emissions and dead-agent steps carry ``action == -1`` and are masked out
 of the loss (the generic learner's FIRST mask, ``learners/ppo.py``).
 
-The reference ships no learner at all (SURVEY §2.7/§5); this is new
-TPU-first surface. Trajectory-vs-per-env-chain equivalence is pinned by
+The reference ships no learner at all (SURVEY §2.7/§5).
+Trajectory-vs-per-env-chain equivalence is pinned by
 ``tests/test_fused_ppo.py``.
 """
 
@@ -43,7 +41,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
-from flax import struct
+from ai_safety_gridworlds_tpu.core import struct
 
 
 class FusedPPOConfig(NamedTuple):
@@ -107,7 +105,7 @@ def init_params(key, n_features: int, n_actions: int, hidden: int = 64):
 def forward(params, obs):
     """Batch-major MLP head: obs [M, F] -> (logits [M, A], value [M]).
 
-    Same parameters as the in-kernel forward; used for evaluation /
+    Same parameters as the in-step forward; used for evaluation /
     deployment outside the packed layout."""
     h = jax.nn.relu(
         jnp.dot(obs, params["mlp_w1"].T, preferred_element_type=jnp.float32)
@@ -167,9 +165,9 @@ def _loss_packed(params, mb, dims, config: FusedPPOConfig):
     """Clipped-surrogate PPO loss in the kernel's packed layout.
 
     ``mb``: feats [T, n*F, L], everything else [T, n, L] (L = lane-block
-    width). The forward runs feature-major per agent, batched over T on
-    the MXU; the selected-action logp uses a static select chain over the
-    A actions (gathers are banned in this layout, as in the kernel)."""
+    width). The forward runs feature-major per agent, batched over T;
+    the selected-action logp uses a static select chain over the A
+    actions (no gathers in this layout, as in the step body)."""
     n, F, A, amin = dims
     feats, action = mb["feats"], mb["action"]
     logits_rows, value_rows = [], []
@@ -295,13 +293,11 @@ def _update_from_traj(fused, traj, boot, params, opt_state, opt, dims,
 
 def evaluate(
     fused, params, n_steps: int = 256, batch: int = 1024, seed: int = 0,
-    backend: str = "pallas", tile: int | None = None,
-    interpret: bool | None = None,
 ):
-    """Evaluate MLP policy ``params`` at fused-kernel speed.
+    """Evaluate MLP policy ``params`` on the fused packed step.
 
     Runs ``n_steps`` over a fresh ``batch`` of auto-resetting lanes under
-    the in-kernel policy and computes EXACT per-episode returns from the
+    the in-step policy and computes EXACT per-episode returns from the
     emitted trajectory (a scan accumulates each agent-stream's rewards
     and harvests them at done flags — partial tail episodes are
     excluded, unlike a naive stats_rewards / episodes ratio).
@@ -317,9 +313,7 @@ def evaluate(
     """
     eval_fused = type(fused)(fused.env)
     S = eval_fused.init_packed(seed=seed, batch=batch)
-    _, traj, _ = eval_fused.rollout_collect(
-        S, params, n_steps, backend=backend, tile=tile, interpret=interpret
-    )
+    _, traj, _ = eval_fused.rollout_collect(S, params, n_steps)
     reward, done = traj["reward"], traj["done"]  # [T, n, B]
     valid = (traj["action"] >= 0).astype(jnp.float32)
 
@@ -350,19 +344,17 @@ def evaluate(
 
 def make_sharded_train_step(
     fused, mesh, config: FusedPPOConfig = FusedPPOConfig(),
-    axis: str = "data", backend: str = "pallas",
-    tile: int | None = None, interpret: bool | None = None,
+    axis: str = "data",
 ):
     """Data-parallel fused-PPO update over a ``jax.sharding.Mesh``.
 
     The packed lane (batch) axis shards over ``axis``; params and
-    optimizer state are replicated. Each device runs the pallas
-    collection kernel (``rollout_collect``) on its lane shard — per-lane
-    statics (randomized layouts) ride in as sharded arguments — computes
-    local minibatch gradients, and gradients/metrics cross the mesh with
-    ``pmean``/``psum`` before the replicated Adam update. This is the
-    production multi-chip composition: the pallas kernel itself inside
-    ``shard_map``, collectives riding ICI.
+    optimizer state are replicated. Each device runs the collection scan
+    (``rollout_collect``) on its lane shard — per-lane statics
+    (randomized layouts) ride in as sharded arguments — computes local
+    minibatch gradients, and gradients/metrics cross the mesh with
+    ``pmean`` before the replicated Adam update: the collection scan
+    inside ``shard_map``, gradients reduced by cross-device collectives.
 
     Per-shard caveat: advantage normalization and the loss denominator
     are computed per lane shard (standard data-parallel PPO practice);
@@ -381,7 +373,7 @@ def make_sharded_train_step(
             fused.amax - fused.amin + 1, int(fused.amin))
     statics_host = fused._statics_jnp()
     # Compose-time shape validation: fail with actionable errors here,
-    # not with a shard_map/pallas shape mismatch deep in the first step.
+    # not with a shard_map shape mismatch deep in the first step.
     n_dev = int(mesh.shape[axis])
     B = getattr(fused, "packed_batch", None)
     if B is not None:
@@ -397,12 +389,6 @@ def make_sharded_train_step(
                 f"per-device lane shard {local} (batch {B} / {n_dev} "
                 f"devices) is not divisible by n_minibatches "
                 f"{config.n_minibatches}"
-            )
-        # rollout_collect clamps the tile to the (local) batch width.
-        if tile is not None and local % min(tile, local):
-            raise ValueError(
-                f"per-device lane shard {local} (batch {B} / {n_dev} "
-                f"devices) is not a multiple of the lane tile {tile}"
             )
     lane_spec = P(None, axis)
     static_specs = {
@@ -422,9 +408,7 @@ def make_sharded_train_step(
     def local_update(params, opt_state, S, statics_l, key):
         key, _ = jax.random.split(key)
         S2, traj, boot = fused.rollout_collect(
-            S, params, config.n_steps,
-            backend=backend, tile=tile, interpret=interpret,
-            statics=statics_l,
+            S, params, config.n_steps, statics=statics_l,
         )
         params, opt_state, metrics = _update_from_traj(
             fused, traj, boot, params, opt_state, opt, dims, config,
@@ -479,11 +463,7 @@ def make_sharded_train_step(
     return train_step, shard_state
 
 
-def make_train_step(
-    fused, config: FusedPPOConfig = FusedPPOConfig(),
-    backend: str = "pallas", tile: int | None = None,
-    interpret: bool | None = None,
-):
+def make_train_step(fused, config: FusedPPOConfig = FusedPPOConfig()):
     """Build the jitted ``state -> (state, metrics)`` fused-PPO update."""
     opt = _optimizer(config)
     dims = (fused.n, fused.POLICY_FEATURES,
@@ -493,8 +473,7 @@ def make_train_step(
     def train_step(state: FusedPPOState):
         key, _ = jax.random.split(state.key)
         S, traj, boot = fused.rollout_collect(
-            state.S, state.params, config.n_steps,
-            backend=backend, tile=tile, interpret=interpret,
+            state.S, state.params, config.n_steps
         )
         params, opt_state, metrics = _update_from_traj(
             fused, traj, boot, state.params, state.opt_state, opt, dims,

@@ -3,7 +3,7 @@
 Re-implements the semantics of the reference MA stack
 (``environments/shared/rl/pycolab_interface_ma.py:160-440``,
 ``safety_game_ma.py:134-1159``, ``safety_game_moma.py:151-2150``) on the
-functional TPU core:
+functional core:
 
 * **sequential randomized sub-stepping**: one env step = a permutation of the
   acting agents drawn from the env RNG; each agent's sub-step runs a FULL
@@ -31,7 +31,7 @@ from typing import Any, Optional  # noqa: F401 (Any used in annotations)
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ai_safety_gridworlds_tpu.core import struct
 
 from ai_safety_gridworlds_tpu.core.timestep import StepType, TerminationReason
 from ai_safety_gridworlds_tpu.mo.safety_game_mo import MoSafetyGridworld

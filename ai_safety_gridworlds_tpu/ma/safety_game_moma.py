@@ -319,7 +319,7 @@ class SafetyEnvironmentMoMa(SafetyEnvironmentMo):
             # Full host-mirror sub-stepping (e.g. aintelope_savanna): the
             # parity path executes the numpy mirror, consuming the env
             # Generator exactly like the reference; the device kernel is the
-            # batched TPU path.
+            # batched device path.
             rewards = np.zeros(
                 (self._game.n_agents, self._game.reward_space.n_dims),
                 np.float32,

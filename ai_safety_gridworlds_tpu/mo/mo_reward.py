@@ -6,7 +6,7 @@ dimensions with full operator algebra, plus the static helpers that fix the
 dimension ordering (sorted union of nonzero keys,
 ``mo_reward.py:121-146``).
 
-TPU-first addition: :class:`MoRewardSpace` compiles a list of enabled
+Addition beyond the reference: :class:`MoRewardSpace` compiles a list of enabled
 ``mo_reward`` constants into a static key→index table and converts any
 ``mo_reward`` into a dense ``float32`` numpy vector — the form the jitted
 step kernels consume (reward constants become compile-time dense vectors;

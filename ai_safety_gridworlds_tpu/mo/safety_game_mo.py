@@ -3,7 +3,7 @@
 Re-implements the surface of the reference's
 ``environments/shared/safety_game_mo.py`` (constants at 62-105, reset/seeding
 at 526-726, stats at 971-1084, CSV logging at 727-860 and 1110-1240, gini at
-1645-1681) on top of the functional TPU core:
+1645-1681) on top of the functional core:
 
 * :class:`MoSafetyGridworld` — functional base whose reward type is a dense
   ``float32[n_dims]`` vector compiled from ``enabled_mo_rewards``;

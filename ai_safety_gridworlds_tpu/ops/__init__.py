@@ -1,149 +1,78 @@
-"""Pallas TPU kernels for hot per-step ops.
+"""Fused packed-step engines for batched rollouts.
 
-The production compute path is the fully-fused multi-agent step kernels
-(:mod:`.fused_firemaker`, :mod:`.fused_savanna`, :mod:`.fused_island_ma`)
-— whole rollout chunks in one pallas kernel with all state resident in
-VMEM — backed by the counter-based PRF of :mod:`.prng`. (Standalone
-per-op kernels were benchmarked and removed: at gridworld sizes XLA's
-fusion beats isolated kernels — findings in ``docs/KERNELS.md``.)
+The production compute path is the fused packed steps (:mod:`.fused_scalar`,
+:mod:`.fused_firemaker`, :mod:`.fused_savanna`, :mod:`.fused_island_ma`):
+the whole RL step (action draws, agent order, sub-steps, finalize,
+auto-reset) on a packed ``[rows, B]`` state, run as one jitted
+``lax.scan`` per rollout chunk (:mod:`.fused_base`), backed by the
+counter-based PRF of :mod:`.prng`. (Standalone per-op kernels were
+benchmarked and removed — findings in ``docs/KERNELS.md``.)
 """
+
+import importlib
+import logging
+
+# Registered env name -> (module, class) of its fused packed step.
+_FUSED = {
+    "firemaker_ex_ma": ("fused_firemaker", "FusedFiremaker"),
+    "aintelope_savanna": ("fused_savanna", "FusedSavanna"),
+    "island_navigation_ex_ma": ("fused_island_ma", "FusedIslandMa"),
+    "boat_race": ("fused_scalar", "FusedBoatRace"),
+    "island_navigation": ("fused_scalar", "FusedIslandNav"),
+    "boat_race_ex": ("fused_scalar", "FusedBoatRaceEx"),
+    "island_navigation_ex": ("fused_scalar", "FusedIslandNavEx"),
+    "side_effects_sokoban": ("fused_scalar", "FusedSokoban"),
+    "absent_supervisor": ("fused_scalar", "FusedAbsentSupervisor"),
+    "distributional_shift": ("fused_scalar", "FusedDistributionalShift"),
+    "safe_interruptibility": ("fused_scalar", "FusedSafeInterruptibility"),
+    "whisky_gold": ("fused_scalar", "FusedWhiskyGold"),
+    "tomato_watering": ("fused_scalar", "FusedTomatoWatering"),
+    "tomato_crmdp": ("fused_scalar", "FusedTomatoWatering"),
+    "conveyor_belt": ("fused_scalar", "FusedConveyorBelt"),
+    "rocks_diamonds": ("fused_scalar", "FusedRocksDiamonds"),
+    "conveyor_belt_ex": ("fused_scalar", "FusedConveyorBeltEx"),
+    "safe_interruptibility_ex": (
+        "fused_scalar", "FusedSafeInterruptibilityEx",
+    ),
+    "friend_foe": ("fused_scalar", "FusedFriendFoe"),
+}
+
+#: Every registered env name that has a fused packed step.
+FUSED_ENV_NAMES = tuple(_FUSED)
+
+
+def _load(module, cls):
+    mod = importlib.import_module(f"{__name__}.{module}")
+    return getattr(mod, cls)
 
 
 def make_fused(env):
-    """The fused single-kernel step driver for a multi-agent env instance,
-    or ``None`` when the env (or its configuration) has no fused kernel —
-    callers fall back to the generic vmapped ``ma_rollout`` path then.
+    """The fused packed-step driver for an env instance, or ``None`` when
+    the env (or its configuration) has no fused step — callers fall back
+    to the generic vmapped path then.
 
-    A config-driven fallback is logged loudly: the generic path is
-    25-100x slower, and silently losing that is a perf bug in the making.
+    A config-driven fallback is logged loudly: silently losing the fused
+    path is a performance bug in the making.
     """
-    import logging
-
     name = getattr(env, "name", None)
+    if name not in _FUSED:
+        return None
     try:
-        if name == "firemaker_ex_ma":
-            from ai_safety_gridworlds_tpu.ops.fused_firemaker import (
-                FusedFiremaker,
-            )
-            return FusedFiremaker(env)
-        if name == "aintelope_savanna":
-            from ai_safety_gridworlds_tpu.ops.fused_savanna import (
-                FusedSavanna,
-            )
-            return FusedSavanna(env)
-        if name == "island_navigation_ex_ma":
-            from ai_safety_gridworlds_tpu.ops.fused_island_ma import (
-                FusedIslandMa,
-            )
-            return FusedIslandMa(env)
-        if name == "boat_race":
-            from ai_safety_gridworlds_tpu.ops.fused_scalar import (
-                FusedBoatRace,
-            )
-            return FusedBoatRace(env)
-        if name == "island_navigation":
-            from ai_safety_gridworlds_tpu.ops.fused_scalar import (
-                FusedIslandNav,
-            )
-            return FusedIslandNav(env)
-        if name == "boat_race_ex":
-            from ai_safety_gridworlds_tpu.ops.fused_scalar import (
-                FusedBoatRaceEx,
-            )
-            return FusedBoatRaceEx(env)
-        if name == "island_navigation_ex":
-            from ai_safety_gridworlds_tpu.ops.fused_scalar import (
-                FusedIslandNavEx,
-            )
-            return FusedIslandNavEx(env)
-        if name == "side_effects_sokoban":
-            from ai_safety_gridworlds_tpu.ops.fused_scalar import (
-                FusedSokoban,
-            )
-            return FusedSokoban(env)
-        if name == "absent_supervisor":
-            from ai_safety_gridworlds_tpu.ops.fused_scalar import (
-                FusedAbsentSupervisor,
-            )
-            return FusedAbsentSupervisor(env)
-        if name == "distributional_shift":
-            from ai_safety_gridworlds_tpu.ops.fused_scalar import (
-                FusedDistributionalShift,
-            )
-            return FusedDistributionalShift(env)
-        if name == "safe_interruptibility":
-            from ai_safety_gridworlds_tpu.ops.fused_scalar import (
-                FusedSafeInterruptibility,
-            )
-            return FusedSafeInterruptibility(env)
-        if name == "whisky_gold":
-            from ai_safety_gridworlds_tpu.ops.fused_scalar import (
-                FusedWhiskyGold,
-            )
-            return FusedWhiskyGold(env)
-        if name in ("tomato_watering", "tomato_crmdp"):
-            from ai_safety_gridworlds_tpu.ops.fused_scalar import (
-                FusedTomatoWatering,
-            )
-            return FusedTomatoWatering(env)
-        if name == "conveyor_belt":
-            from ai_safety_gridworlds_tpu.ops.fused_scalar import (
-                FusedConveyorBelt,
-            )
-            return FusedConveyorBelt(env)
-        if name == "rocks_diamonds":
-            from ai_safety_gridworlds_tpu.ops.fused_scalar import (
-                FusedRocksDiamonds,
-            )
-            return FusedRocksDiamonds(env)
-        if name == "conveyor_belt_ex":
-            from ai_safety_gridworlds_tpu.ops.fused_scalar import (
-                FusedConveyorBeltEx,
-            )
-            return FusedConveyorBeltEx(env)
-        if name == "safe_interruptibility_ex":
-            from ai_safety_gridworlds_tpu.ops.fused_scalar import (
-                FusedSafeInterruptibilityEx,
-            )
-            return FusedSafeInterruptibilityEx(env)
-        if name == "friend_foe":
-            from ai_safety_gridworlds_tpu.ops.fused_scalar import (
-                FusedFriendFoe,
-            )
-            return FusedFriendFoe(env)
+        return _load(*_FUSED[name])(env)
     except NotImplementedError as e:
         logging.getLogger(__name__).warning(
-            "%s has a fused kernel, but this configuration is not "
+            "%s has a fused step, but this configuration is not "
             "supported by it (%s); falling back to the generic vmapped "
-            "path (~25-100x slower).",
+            "path.",
             name,
             e,
         )
         return None
-    return None
 
 
 def __getattr__(name):
-    # Lazy heavyweight kernel classes (importing them pulls in env modules).
-    if name == "FusedFiremaker":
-        from ai_safety_gridworlds_tpu.ops.fused_firemaker import FusedFiremaker
-        return FusedFiremaker
-    if name == "FusedSavanna":
-        from ai_safety_gridworlds_tpu.ops.fused_savanna import FusedSavanna
-        return FusedSavanna
-    if name == "FusedIslandMa":
-        from ai_safety_gridworlds_tpu.ops.fused_island_ma import FusedIslandMa
-        return FusedIslandMa
-    if name == "FusedBoatRace":
-        from ai_safety_gridworlds_tpu.ops.fused_scalar import FusedBoatRace
-        return FusedBoatRace
-    if name == "FusedIslandNav":
-        from ai_safety_gridworlds_tpu.ops.fused_scalar import FusedIslandNav
-        return FusedIslandNav
-    if name.startswith("Fused"):
-        # All remaining kernel classes live in the scalar-family module.
-        from ai_safety_gridworlds_tpu.ops import fused_scalar
-
-        if hasattr(fused_scalar, name):
-            return getattr(fused_scalar, name)
+    # Lazy kernel classes (importing them pulls in env modules).
+    for module, cls in _FUSED.values():
+        if cls == name:
+            return _load(module, cls)
     raise AttributeError(name)

@@ -1,33 +1,24 @@
-"""Fully-fused batched firemaker_ex_ma step kernel.
+"""Fully-fused batched firemaker_ex_ma packed step.
 
 The generic batched MA path (vmapped ``apply_substep`` chain) compiles to
-~40 unfusable XLA kernels per step (threefry, convs, scatters), putting a
-~140 us/kernel launch floor on the step time (``utils/profiling.py``). This
-module removes the bottleneck by restructuring the WHOLE multi-agent step —
-action draws, randomized agent order, all sequential sub-steps (move, stop
-button, workshop, fire spread, territory), finalize, and auto-reset — into
-one scatter-free, gather-free, conv-free computation over a "packed" batch
-layout, which then runs either:
+~40 unfusable XLA kernels per step (threefry, convs, scatters). This
+module restructures the WHOLE multi-agent step — action draws, randomized
+agent order, all sequential sub-steps (move, stop button, workshop, fire
+spread, territory), finalize, and auto-reset — into one scatter-free,
+gather-free, conv-free computation over a "packed" batch layout, which
+``FusedMaBase``'s drivers run as one jitted ``lax.scan`` per rollout
+chunk.
 
-* as plain XLA (``rollout(..., backend="xla")``) — the reference
-  formulation used for regression testing, or
-* inside ONE pallas TPU kernel per rollout chunk
-  (``backend="pallas"``): the grid walks 128-lane batch tiles, each tile
-  keeps its whole environment state resident in VMEM and loops all
-  ``n_steps`` in-kernel — zero per-step launch overhead.
-
-Packed layout: batch on the 128-wide lane axis, board cells on sublanes —
-``fire`` is ``[H*W, B]``, positions are flat cell indices ``[n_agents, B]``,
-scalars are ``[1, B]``. Position reads/writes become one-hot compare +
-reduce (never a gather/scatter); the fire-spread stencil
-(``firemaker_ex_ma.py:561-621``: union probability in log space) becomes 24
-static sublane rolls — board borders are all walls, so roll wrap-around
-lands on non-spreadable cells and needs no masking. Randomness is the
+Packed layout: batch on the minor lane axis, board cells on the major
+axis — ``fire`` is ``[H*W, B]``, positions are flat cell indices
+``[n_agents, B]``, scalars are ``[1, B]``. Position reads/writes become
+one-hot compare + reduce (never a gather/scatter); the fire-spread
+stencil (``firemaker_ex_ma.py:561-621``: union probability in log space)
+becomes static rolls along the cell axis (8 after the separable
+grouping below) — board borders are all walls, so roll wrap-around lands
+on non-spreadable cells and needs no masking. Randomness is the
 counter-based PRF of ``ops/prng.py`` (distributionally faithful to the
 reference Generator; the host-parity shell path is unaffected).
-
-Both backends execute the SAME jnp step body, so they are bit-identical on
-the same backend device (asserted by ``tests/test_fused_firemaker.py``).
 
 Semantics mirror ``envs/firemaker_ex_ma.py::FiremakerExMa.engine_substep``
 (itself lockstep-tested against
@@ -73,42 +64,25 @@ QUIT = int(ActionsMo.QUIT)
 
 
 class FusedFiremaker(FusedMaBase):
-    """Packed batched firemaker with a single-kernel step/rollout."""
+    """Packed batched firemaker with a fused step/rollout."""
 
-    # Tile optimum is formulation-dependent (r5 on-chip sweep): the roll
-    # stencil degrades past 128 (17.4M at 256 vs 24.7M at 128), while the
-    # MXU matmul amortizes W over wider lane tiles (32.2M at 256 vs 30.1M
-    # at 128). Set per-instance in __init__.
-    DEFAULT_TILE = 128
-    # In-kernel linear-policy features per agent (``set_policies``):
+    # In-step linear-policy features per agent (``set_policies``):
     # normalized row/col, at-workshop flag, stop-button countdown,
     # external-fire count, episode progress.
     POLICY_FEATURES = 6
 
-    def __init__(self, env, ablate=(), mxu_stencil=True):
-        # Measurement-only ablations (``tools/firemaker_roofline.py``;
-        # docs/KERNELS.md roofline): "prf" replaces the per-cell fire
-        # uniform with a constant, "stencil" replaces the spread product
-        # with a trivial per-cell term, "onehot" zeroes the per-agent
-        # tile-code reductions. Each BREAKS env semantics — never enable
-        # outside cost attribution runs.
-        #
-        # ``mxu_stencil`` (DEFAULT since r5): compute the fire-spread
-        # survival product as a banded log-survival matmul on the MXU
-        # (``W @ src`` with ``W[i, j] = log1p(-p)`` for stencil offset
-        # ``j -> i``, split into two default-precision passes against
-        # bf16 input rounding — see the split below) followed by
-        # ``1 - exp``, replacing the 8 sublane rolls of the separable
-        # VPU form. Mathematically exact for 0/1 sources — only f32
-        # rounding differs (gated <= 1e-5 absolute on ``cum`` by
-        # ``tests/test_fused_firemaker.py``; 3.6e-6 measured on chip).
-        # The r4 roofline found the rolls dominate the stencil's ~33%
-        # share of step time; on-chip r5 A/B (tools/firemaker_mxu_ab.py,
-        # batch 4096 tile 128): rolls 24.7M steps/s -> matmul 30.9M
-        # (+25%). ``mxu_stencil=False`` restores the roll form.
-        self._ablate = frozenset(ablate)
-        self._mxu_stencil = bool(mxu_stencil)
-        self.DEFAULT_TILE = 256 if self._mxu_stencil else 128
+    def __init__(self, env, matrix_stencil=False):
+        # ``matrix_stencil=True``: compute the fire-spread survival
+        # product as a banded log-survival matrix product (``W @ src``
+        # with ``W[i, j] = log1p(-p)`` for stencil offset ``j -> i``,
+        # split into two products against the tensor cores' input
+        # rounding — see the split below) followed by ``1 - exp``, instead
+        # of the 8 rolls of the separable product form. Mathematically
+        # exact for 0/1 sources; only f32 rounding differs (gated <= 1e-5
+        # absolute on ``cum`` by ``tests/test_fused_firemaker.py``). The
+        # roll form is the default: it ran the whole rollout 24-32%
+        # faster on the H100 (PERF.md, "Kernel decisions").
+        self._matrix_stencil = bool(matrix_stencil)
         self.adm = int(env.action_direction_mode)
         self.odm = int(env.observation_direction_mode)
         if self.odm == 2 and self.adm == 0:
@@ -164,8 +138,7 @@ class FusedFiremaker(FusedMaBase):
         # of one per offset (24). Rows with IDENTICAL term lists share one
         # row polynomial: the 5x5 stencil is symmetric in dr, so ±dr rows
         # are the same un-rolled board — 3 distinct polynomials instead of
-        # 5 (r4 roofline: the stencil was 33% of step time; this cuts its
-        # term work ~36% bit-identically).
+        # 5 (~36% less term work, bit-identically).
         rows: dict = {}
         for dr, dc, p in env._spread_offsets:
             rows.setdefault(dr, []).append((dc, float(p)))
@@ -178,20 +151,19 @@ class FusedFiremaker(FusedMaBase):
         self.spread_dcs = sorted(
             {dc for _, dc, _ in env._spread_offsets}
         )
-        if self._mxu_stencil:
+        if self._matrix_stencil:
             # Banded log-survival matrix over FLAT indices, replicating
             # the roll form's wrap-around (harmless: wrapped reads land
             # on the all-wall border, where sources are identically 0).
             #
-            # Two-term split W = W_hi + W_lo against the MXU's bf16 input
-            # rounding: sources are 0/1 (bf16-exact) and accumulation is
-            # f32, so the ONLY default-precision error is W's bf16
-            # rounding (measured 1.2e-4 absolute on ``cum`` on chip — up
-            # to ~14% relative on the weakest single-neighbor
-            # probability). W_hi is bf16-representable (passes the MXU
-            # unrounded), W_lo carries the residual (~2^-9 relative), so
-            # two default-precision matmuls recover ~1e-6 accuracy at
-            # one-third the cost of a HIGHEST-precision (6-pass) matmul.
+            # Two-term split W = W_hi + W_lo against the input rounding
+            # of a default-precision f32 product (TF32 on the GPU's
+            # tensor cores, 10 mantissa bits): sources are 0/1 (exact)
+            # and accumulation is f32, so the ONLY error is W's rounding.
+            # W_hi is bf16-representable (8 mantissa bits), so it passes
+            # any reduced-precision input format unrounded; W_lo carries
+            # the residual (~2^-9 relative), whose own rounding leaves
+            # ~1e-6 absolute on ``cum``.
             logw = np.zeros((self.HW, self.HW), np.float64)
             for dr, dc, p in env._spread_offsets:
                 off = dr * w + dc
@@ -234,8 +206,8 @@ class FusedFiremaker(FusedMaBase):
             )
         }
         # Static row masks: reward row r belongs to agent r // D. All
-        # lookup tables live in ``self.consts`` so the pallas kernel
-        # receives them as inputs (closure constants are rejected).
+        # lookup tables live in ``self.consts`` (uploaded once, passed to
+        # the jitted step as arrays).
         row_agent = (np.arange(self.n * self.D) // self.D).astype(np.int32)
         self.consts["row_agent"] = row_agent.reshape(self.n * self.D, 1)
         for j in range(self.n):
@@ -308,7 +280,7 @@ class FusedFiremaker(FusedMaBase):
     # ----------------------------------------------------------- step body
 
     def _policy_feats(self, pos, at_work, countdown, ext_fires, t):
-        """Per-agent [1, B] feature rows for in-kernel linear policies
+        """Per-agent [1, B] feature rows for in-step linear policies
         (observed at the start of the step, post auto-reset)."""
         feats = []
         for j in range(self.n):
@@ -328,21 +300,23 @@ class FusedFiremaker(FusedMaBase):
     def _spread_cum(self, src_f, consts):
         """Per-cell fire-spread probability ``1 - prod(1 - p*src)`` over
         the 5x5 stencil, from the [HW, lanes] 0/1 source board. Two
-        formulations (selected by ``mxu_stencil``; accuracy-gated against
-        each other in ``tests/test_fused_firemaker.py``)."""
-        if self._mxu_stencil:
-            # Two [HW, HW] x [HW, lanes] MXU matmuls (the W_hi + W_lo
-            # split built in __init__): per-cell summed log-survival over
-            # burning neighbors (exact for 0/1 sources; only f32 rounding
-            # differs from the product form), then one exp. No burning
-            # neighbor -> s = 0 -> cum = 0 exactly in both halves,
-            # preserving the ``cum > 0`` spread-cell semantics.
+        formulations (selected by ``matrix_stencil``; accuracy-gated
+        against each other in ``tests/test_fused_firemaker.py``)."""
+        if self._matrix_stencil:
+            # Two [HW, HW] x [HW, lanes] products (the W_hi + W_lo split
+            # built in __init__) at an explicit default precision: per-cell
+            # summed log-survival over burning neighbors (exact for 0/1
+            # sources; only f32 rounding differs from the product form),
+            # then one exp. No burning neighbor -> s = 0 -> cum = 0
+            # exactly in both halves, preserving the ``cum > 0``
+            # spread-cell semantics.
             dims = (((1,), (0,)), ((), ()))
+            prec = jax.lax.Precision.DEFAULT
             s = jax.lax.dot_general(
-                consts["spread_logw_hi"], src_f, dims,
+                consts["spread_logw_hi"], src_f, dims, precision=prec,
                 preferred_element_type=jnp.float32,
             ) + jax.lax.dot_general(
-                consts["spread_logw_lo"], src_f, dims,
+                consts["spread_logw_lo"], src_f, dims, precision=prec,
                 preferred_element_type=jnp.float32,
             )
             return 1.0 - jnp.exp(s)
@@ -373,7 +347,7 @@ class FusedFiremaker(FusedMaBase):
     def _step(self, S: dict, statics: dict, consts: dict,
               collect_draws: bool = False):
         """One full MA step on packed arrays. Pure jnp; runs under XLA or
-        inside a pallas kernel. Returns the updated dict (and the raw draw
+        under the scan drivers. Returns the updated dict (and the raw draw
         fields when ``collect_draws`` — used by the equivalence test).
         ``statics`` is empty: this kernel's boards are lane-invariant and
         ride in ``consts``."""
@@ -528,16 +502,10 @@ class FusedFiremaker(FusedMaBase):
             # dynamic fire bit) recovers every tile property needed below —
             # replacing the ~n+8 separate masked any() reductions.
             dyn_code = consts["code"] + 64.0 * fire
-            if "onehot" in self._ablate:  # cost-attribution only
-                v_agents = [
-                    jnp.zeros((1,) + actions.shape[1:], _F32)
-                    for _ in range(n)
-                ]
-            else:
-                v_agents = [
-                    jnp.sum(agent_oh[j] * dyn_code, axis=0, keepdims=True)
-                    for j in range(n)
-                ]
+            v_agents = [
+                jnp.sum(agent_oh[j] * dyn_code, axis=0, keepdims=True)
+                for j in range(n)
+            ]
 
             def bit(v, k):
                 m = jnp.floor(v * _F32(1.0 / (1 << k)))
@@ -634,21 +602,15 @@ class FusedFiremaker(FusedMaBase):
                 src_j = agent_oh[j] & at_w_rows[j] & (countdown2 == 0)
                 sources = sources | src_j
             src_f = sources.astype(_F32)
-            if "stencil" in self._ablate:  # cost-attribution only
-                cum = src_f * 0.01
-            else:
-                cum = self._spread_cum(src_f, consts)
+            cum = self._spread_cum(src_f, consts)
             eligible = ~fire_cleared & spreadable
             cum = jnp.where(eligible, cum, 0.0)
             # Spread-eligible cells (~fire_cleared) and burning cells
             # (fire_cleared) are disjoint, so one per-cell uniform serves
             # both Bernoulli draws.
-            if "prf" in self._ablate:  # cost-attribution only
-                u_fire = 0.5 + 0.0 * src_f
-            else:
-                u_fire = prng.uniform(
-                    key_hi, key_lo, ctr0 + np.uint32(2 + slot), iota_hw
-                )
+            u_fire = prng.uniform(
+                key_hi, key_lo, ctr0 + np.uint32(2 + slot), iota_hw
+            )
             spread_cells = cum > 0.0
             spread_set = u_fire < cum
             cont_keep = u_fire < self.cont_p

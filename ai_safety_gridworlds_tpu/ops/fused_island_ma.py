@@ -1,4 +1,4 @@
-"""Fully-fused batched island_navigation_ex_ma step kernel.
+"""Fully-fused batched island_navigation_ex_ma packed step.
 
 Same architecture as :mod:`ops.fused_firemaker` / :mod:`ops.fused_savanna`:
 the WHOLE multi-agent step — action draws, randomized agent order, every
@@ -6,9 +6,9 @@ sequential sub-step (relative direction updates, move + collision, goal,
 drink/food consumption with scalar availability, gold/silver, gap visits,
 satiation homeostasis, water death drape, sustainability regrowth),
 finalize, and auto-reset — restructured into one scatter-free, gather-free
-computation over a packed batch layout ([cells, B] boards on sublanes,
-batch on the 128-wide lane axis), runnable as plain XLA or inside ONE
-pallas TPU kernel per rollout chunk with all state resident in VMEM.
+computation over a packed batch layout ([cells, B] boards, batch on the
+minor lane axis), run by ``FusedMaBase``'s drivers as one jitted
+``lax.scan`` per rollout chunk.
 
 This environment is the cheapest of the three MA flagships to fuse: the
 sub-step consumes NO per-cell randomness (no predators, no fire), and
@@ -86,13 +86,9 @@ def _table_sel(table_2d, action_ids, dir_ids):
 
 
 class FusedIslandMa(FusedMaBase):
-    """Packed batched island_navigation_ex_ma with a single-kernel step."""
+    """Packed batched island_navigation_ex_ma with a fused step."""
 
-    # r3 tile sweep with dispatch-amortized timing: 256 -> 258M, 512 ->
-    # 250M, 1024 -> 224M, 2048 -> 175M steps/s (the old 1024 optimum was
-    # picked under per-call dispatch noise).
-    DEFAULT_TILE = 256  # tiny per-lane VMEM footprint -> wide tiles win
-    # In-kernel linear-policy features per agent (``set_policies``):
+    # In-step linear-policy features per agent (``set_policies``):
     # normalized row/col, drink/food satiation, drink/food availability,
     # action-direction one-hot.
     POLICY_FEATURES = 10
@@ -211,7 +207,7 @@ class FusedIslandMa(FusedMaBase):
         """Pack a batch into the [rows, B] layout. With map randomization
         enabled, one independent layout is drawn per lane on the host (the
         same interior shuffle as ``host_reset_options_with_generator``);
-        in-kernel auto-reset restores each lane's OWN initial map.
+        in-step auto-reset restores each lane's OWN initial map.
         ``layout_pool=K > 1`` draws K independent layouts per lane and the
         auto-reset cycles them per episode (``ep_idx % K``) — approximating
         fresh-map-per-episode semantics (see ``fused_savanna.init_packed``)."""
@@ -356,7 +352,7 @@ class FusedIslandMa(FusedMaBase):
 
     def _policy_feats(self, pos, drink_sat, food_sat, drink_av, food_av,
                       act_dir):
-        """Per-agent [1, B] feature rows for in-kernel linear policies
+        """Per-agent [1, B] feature rows for in-step linear policies
         (observed at the start of the step, post auto-reset)."""
         feats = []
         for j in range(self.n):
@@ -374,7 +370,7 @@ class FusedIslandMa(FusedMaBase):
         return feats
 
     def _step(self, S, statics, consts, collect_draws: bool = False):
-        """One full MA step on packed arrays (pure jnp; XLA or pallas)."""
+        """One full MA step on packed arrays (pure jnp)."""
         env, cfg = self.env, self.cfg
         n, D, HW, W, H = self.n, self.D, self.HW, self.w, self.h
         key_hi, key_lo = S["key"][0:1], S["key"][1:2]

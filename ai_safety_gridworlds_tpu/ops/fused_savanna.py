@@ -1,22 +1,22 @@
-"""Fully-fused batched aintelope_savanna step kernel.
+"""Fully-fused batched aintelope_savanna packed step.
 
 Same architecture as :mod:`ops.fused_firemaker`: the WHOLE multi-agent step
 — action draws, randomized agent order, every sequential sub-step (relative
 direction updates, move + collision, resource consumption, satiation
 homeostasis, gold/silver log rewards, predator random walk, safety
 distances), finalize, and auto-reset — restructured into one scatter-free,
-gather-free computation over a packed batch layout ([cells, B] boards on
-sublanes, batch on the 128-wide lane axis), runnable as plain XLA or inside
-ONE pallas TPU kernel per rollout chunk with all state resident in VMEM.
+gather-free computation over a packed batch layout ([cells, B] boards,
+batch on the minor lane axis), run by ``FusedMaBase``'s drivers as one
+jitted ``lax.scan`` per rollout chunk.
 
 All savanna configurations are supported. With
 ``sustainability_challenge=False`` (the default) every resource curtain is
 STATIC per episode (availability resets to the amount flag each sub-step,
 ``aintelope_savanna.py:1667-1669``), so the only dynamic board is the
-predator curtain, whose random walk becomes four static sublane rolls (the
+predator curtain, whose random walk becomes four static cell-axis rolls (the
 all-wall border absorbs wrap-around). With ``sustainability_challenge=True``
 the resource curtains and availabilities become per-lane STATE: the
-in-kernel drape phase runs the regrowth power law and the
+in-step drape phase runs the regrowth power law and the
 without-replacement tile removal/spawn each sub-step, implementing the
 per-env ``select_k`` ("k smallest uniform scores") as K unrolled argmin
 extractions over a per-cell PRF score board (K bounded statically from the
@@ -31,7 +31,7 @@ Map randomization: per-lane maps are drawn at ``init_packed`` with the
 env's device-side interior shuffle (``map_randomization_frequency`` ≥ 1),
 so the 4096-lane batch covers 4096 independent layouts. With
 ``map_randomization_frequency >= 3`` (the reference default,
-``aintelope_savanna.py:65``) the in-kernel auto-reset additionally
+``aintelope_savanna.py:65``) the in-step auto-reset additionally
 redraws each lane's map EVERY episode (``exact_reset``): one PRF word
 per cell ranks the interior with distinct integer scores, and the T
 smallest cells host the episode's T-tile multiset in a fixed type order
@@ -40,7 +40,7 @@ per-episode layout process is the reference's interior shuffle
 (``safety_game_mo_base.py:918-1134``) exactly in distribution (the PRF
 stream is not draw-for-draw with numpy, PARITY.md). The combined
 code/water-distance board, wall mask, agent starts, and predator/resource
-curtains are rebuilt in-kernel from the extracted cells (water distances
+curtains are rebuilt in-step from the extracted cells (water distances
 as a min over the drawn water tiles). ``init_packed(exact_reset=False)``
 or ``layout_pool=K`` opt out (restore-initial-layout / K-cycle modes for
 configs that randomize less often than per-episode, or for speed).
@@ -93,28 +93,14 @@ def _lut_select(table_1d, idx, lo, hi):
 
 
 class FusedSavanna(FusedMaBase):
-    """Packed batched aintelope_savanna with a single-kernel step/rollout."""
+    """Packed batched aintelope_savanna with a fused step/rollout."""
 
-    # r5 tile sweep (exact_reset moved the layout boards into per-lane
-    # STATE, shifting the optimum down from r3's 512): default config
-    # 256 -> 206M vs 512 -> 204M (tie within run variance), and the
-    # sustainability config clearly prefers 256 (110.5M vs 102.7M) —
-    # auto-routed callers get 256 now.
-    DEFAULT_TILE = 256
-    # In-kernel linear-policy features per agent (``set_policies``):
+    # In-step linear-policy features per agent (``set_policies``):
     # normalized row/col, drink/food satiation, water/predator safety
     # distances, observation-direction one-hot.
     POLICY_FEATURES = 10
 
-    def __init__(self, env, ablate=()):
-        # Measurement-only ablations (``tools/savanna_sustain_sweep.py``;
-        # docs/KERNELS.md sustain-phase analysis): "extract" skips the
-        # merged removal/spawn argmin-extraction unroll, "regrowth"
-        # replaces the power-law regrowth (exp/log transcendentals) with
-        # identity, "prf" replaces the per-cell score hash with the cell
-        # index. Each BREAKS env semantics — never enable outside cost
-        # attribution runs.
-        self._ablate = frozenset(ablate)
+    def __init__(self, env):
         self.env = env
         self.n = env.n_agents
         self.D = env.reward_space.n_dims
@@ -183,7 +169,7 @@ class FusedSavanna(FusedMaBase):
         # --- sustainability challenge: dynamic resource curtains ---------
         # With the flag on, resource curtains and availabilities become
         # per-lane STATE; the drape phase (regrowth + without-replacement
-        # tile removal/spawn) runs in-kernel each sub-step. The
+        # tile removal/spawn) runs in-step each sub-step. The
         # without-replacement choice is K unrolled argmin extractions over
         # a per-cell uniform score board — the k cells with the smallest
         # scores, exactly the per-env formulation
@@ -282,7 +268,7 @@ class FusedSavanna(FusedMaBase):
         }
 
         # --- exact per-episode map re-randomization ----------------------
-        # Static placement multiset for the in-kernel redraw (module
+        # Static placement multiset for the in-step redraw (module
         # docstring): the trimmed base board's interior tiles in a fixed
         # type order, plus the art-vs-flag top-up deficits (joint uniform
         # placement of the extended multiset == place the base multiset,
@@ -331,7 +317,7 @@ class FusedSavanna(FusedMaBase):
         if not set(np.unique(interior_b)) <= known:
             self._exact_ok = False
             self._exact_why = "board interior has unsupported tile chars"
-        # The in-kernel redraw rebuilds the border as ALL WALL
+        # The in-step redraw rebuilds the border as ALL WALL
         # (``_redraw_layout``: wall_new from border_wall) — a non-wall
         # border tile would silently vanish on the first auto-reset, so
         # such maps must take the restore/layout_pool paths instead.
@@ -366,7 +352,7 @@ class FusedSavanna(FusedMaBase):
         count-enforced interior shuffle as ``sample_reset_options``, but
         without paying a device compile for the one-off setup.
 
-        ``exact_reset`` selects the in-kernel per-episode redraw (module
+        ``exact_reset`` selects the in-step per-episode redraw (module
         docstring): the auto-reset draws a FRESH uniformly-shuffled map
         from the kernel PRF every episode, matching the reference's
         ``map_randomization_frequency=3`` process. Default: on whenever
@@ -374,7 +360,7 @@ class FusedSavanna(FusedMaBase):
         ``layout_pool == 1``.
 
         ``layout_pool=K > 1`` instead draws K independent layouts per
-        lane and the in-kernel auto-reset cycles through them per episode
+        lane and the in-step auto-reset cycles through them per episode
         (``ep_idx % K``) — a cheaper approximation: each layout in the
         pool is an independent draw, so the per-episode layout
         distribution matches; layouts repeat with period K within a
@@ -610,7 +596,7 @@ class FusedSavanna(FusedMaBase):
 
     def _policy_feats(self, pos, drink_sat, food_sat, safety, safety2,
                       obs_dir):
-        """Per-agent [1, B] feature rows for in-kernel linear policies
+        """Per-agent [1, B] feature rows for in-step linear policies
         (observed at the start of the step, post auto-reset)."""
         feats = []
         for j in range(self.n):
@@ -700,7 +686,7 @@ class FusedSavanna(FusedMaBase):
         }
 
     def _step(self, S, statics, consts, collect_draws: bool = False):
-        """One full MA step on packed arrays (pure jnp; XLA or pallas)."""
+        """One full MA step on packed arrays (pure jnp)."""
         env, cfg = self.env, self.cfg
         n, D, HW, W = self.n, self.D, self.HW, self.w
         key_hi, key_lo = S["key"][0:1], S["key"][1:2]
@@ -1226,17 +1212,14 @@ class FusedSavanna(FusedMaBase):
                         (t > 0) & ~on_any & (av >= 1.0)
                         & (av < _F32(spec["cond_limit"]))
                     )
-                    if "regrowth" in self._ablate:  # cost-attribution only
-                        grown = av + 1.0
-                    else:
-                        grown = jnp.minimum(
-                            _F32(spec["growth_limit"]),
-                            jnp.exp(
-                                _F32(float(cfg["DRINK_REGROWTH_EXPONENT"]))
-                                * jnp.log(av + 1.0)
-                            ),
-                        )
-                        grown = jnp.minimum(grown, pooled("usable_half"))
+                    grown = jnp.minimum(
+                        _F32(spec["growth_limit"]),
+                        jnp.exp(
+                            _F32(float(cfg["DRINK_REGROWTH_EXPONENT"]))
+                            * jnp.log(av + 1.0)
+                        ),
+                    )
+                    grown = jnp.minimum(grown, pooled("usable_half"))
                     av_new = jnp.where(can_grow, grown, av)
                     av_int = jnp.ceil(av_new)
                     if not spec["use_metric"]:
@@ -1247,8 +1230,8 @@ class FusedSavanna(FusedMaBase):
                         # the removal picks always reach av_int, zeroing
                         # grow. The two unrolls therefore share ONE loop
                         # of max(k_rem, k_spawn) argmin extractions over a
-                        # per-lane-selected score plane (r4 sweep: the two
-                        # separate loops were ~72% of the sustain step).
+                        # per-lane-selected score plane instead of two
+                        # separate loops.
                         #
                         # Tie-free INTEGER scores: one PRF word per cell;
                         # the top 20 bits rank cells (uniform), the low 9
@@ -1263,16 +1246,11 @@ class FusedSavanna(FusedMaBase):
                         # its +OFF_PLAYER offset; SENT marks
                         # non-candidates. Selection stays distributionally
                         # faithful, not draw-for-draw (PARITY.md).
-                        if "prf" in self._ablate:  # cost-attribution only
-                            bits = jnp.broadcast_to(
-                                jnp.asarray(iota_hw, jnp.uint32), cur_f.shape
-                            )
-                        else:
-                            bits = prng.hash_u32(
-                                key_hi, key_lo,
-                                ctr0 + np.uint32(slot_base + 1 + r_idx),
-                                iota_hw,
-                            )
+                        bits = prng.hash_u32(
+                            key_hi, key_lo,
+                            ctr0 + np.uint32(slot_base + 1 + r_idx),
+                            iota_hw,
+                        )
                         base = (
                             ((bits >> np.uint32(12)) << np.uint32(9))
                             | jnp.asarray(iota_hw, jnp.uint32)
@@ -1303,10 +1281,7 @@ class FusedSavanna(FusedMaBase):
                         # Valid-pick bound: removal may take player cells
                         # (< SENT); spawn candidates are all < OFF_PLAYER.
                         thresh = jnp.where(removing, SENT, OFF_PLAYER)
-                        k_iter = (
-                            0 if "extract" in self._ablate  # attribution
-                            else max(spec["k_rem"], spec["k_spawn"])
-                        )
+                        k_iter = max(spec["k_rem"], spec["k_spawn"])
                         # The loop only finds the CUTOFF score tau (the
                         # count-th smallest candidate, or the last valid
                         # one): a masked-min chain touching the board

@@ -1,15 +1,12 @@
-"""Fully-fused batched step kernels for the scalar bench envs.
+"""Fully-fused batched packed steps for the scalar envs.
 
 The generic batched scalar path (``core.base.rollout``: vmapped
-``episode_step`` under ``lax.scan``) is bound by this stack's
-per-scan-iteration execution overhead (microseconds per iteration even
-for a one-op body — BASELINE.md "dispatch mirage"), capping boat_race /
-island_navigation at ~2-4M env-steps/s at batch 4096. These kernels
-restructure the WHOLE scalar RL shell — auto-reset on step-after-LAST,
+``episode_step`` under ``lax.scan``) runs the per-env step chain. These
+packed steps restructure the WHOLE scalar RL shell — auto-reset on step-after-LAST,
 action draw, engine physics, ``max_iterations`` truncation, episode
 accounting — into one scatter-free computation over the packed
-[rows, B] layout, runnable as plain XLA or inside ONE pallas TPU kernel
-per rollout chunk (``FusedMaBase``'s drivers, reused unchanged).
+[rows, B] layout, run as one jitted ``lax.scan`` per rollout chunk
+(``FusedMaBase``'s drivers, reused unchanged).
 
 The shell semantics mirror ``core.base.episode_step`` exactly (reference:
 ``rl/pycolab_interface.py:165-168,292-303`` step-after-LAST reset +
@@ -26,11 +23,12 @@ Each env subclass supplies only ``init_packed`` (statics packing) and
 ``_physics`` (the ``engine_step`` body on packed rows). Equivalence is
 asserted by ``tests/test_fused_scalar.py`` by injecting the kernel's
 drawn actions into the per-env ``core.base`` chain — the path that is
-lockstep-tested against the reference — plus XLA-vs-pallas bit-identity.
+lockstep-tested against the reference — plus scan-vs-step-loop
+bit-identity.
 
 Because the subclasses implement the ``FusedMaBase`` contract (``n=1``
 single-agent, ``D=1`` scalar reward, ``POLICY_FEATURES`` + ``feats_of``),
-they also get the in-kernel MLP policy, trajectory collection
+they also get the in-step MLP policy, trajectory collection
 (``rollout_collect``), and therefore fused PPO training
 (``learners/ppo_fused.py``) for free.
 
@@ -47,8 +45,8 @@ per-tomato draws via ``PHYS_ROWS``; serves tomato_crmdp too),
 dual-dispatch quirk), ``FusedRocksDiamonds``,
 ``FusedSafeInterruptibilityEx`` (doubled-reward quirk), and
 ``FusedFriendFoe`` (cross-episode bandit-policy carry,
-``RESET_ROWS=2``). Reference semantics cited per class; measured
-on-chip rates in ``docs/KERNELS.md``.
+``RESET_ROWS=2``). Reference semantics cited per class; design notes in
+``docs/KERNELS.md``.
 """
 
 from __future__ import annotations
@@ -76,17 +74,16 @@ _DELTAS = np.asarray(ACTION_DELTAS)
 
 
 class FusedScalarBase(FusedMaBase):
-    """Packed batched scalar env with a single-kernel step/rollout.
+    """Packed batched scalar env with a fused step/rollout.
 
-    Reuses ``FusedMaBase``'s backend drivers (XLA scan / pallas grid,
-    statics memoization, jit caching, trajectory collection) — those are
+    Reuses ``FusedMaBase``'s drivers (jitted scan, statics memoization,
+    trajectory collection) — those are
     generic over ``STATE_FIELDS``/``consts``/``statics`` — and replaces
     the MA step with the scalar RL shell above.
     """
 
     n = 1
     D = 1  # MO subclasses set self.D = env.reward_space.n_dims
-    DEFAULT_TILE = 512  # tiny state -> wide lane tiles win
     n_sites = 1  # one uniform action draw per step
     DELTAS = _DELTAS  # MO subclasses use the ActionsMo ordering
     # Envs with per-episode randomization (``sample_reset_options``) set
@@ -190,7 +187,7 @@ class FusedScalarBase(FusedMaBase):
             )
         extras = self._reset_extras(S, over, statics, u_reset)
 
-        # ---- action draw (site 0) + optional in-kernel policy ------------
+        # ---- action draw (site 0) + optional in-step policy ------------
         feats = None
         if "pol_w" in statics or "mlp_w1" in statics:
             feats = self.packed_feats(pos, extras)
@@ -226,7 +223,9 @@ class FusedScalarBase(FusedMaBase):
         game_over = acting & (terminated | truncated)
         ep_ret = ep_ret + reward
         hid_ret = hid_ret + hidden
-        types = jnp.where(over, FIRST, jnp.where(game_over, LAST, MID))
+        types = jnp.where(
+            over, FIRST, jnp.where(game_over, LAST, MID)
+        ).astype(_I32)  # not weak-typed: keeps the carry's aval stable
         gof = game_over.astype(_F32)
 
         out = {
@@ -1923,7 +1922,7 @@ class FusedFriendFoe(FusedScalarBase):
     exponential-smoothing policy updates on each choice, the reveal
     markers that open the wall cells above the boxes, and the optional
     ``extra_step`` terminal frame. The policy-estimate rows CARRY across
-    in-kernel auto-resets (``carry_state_across_reset`` semantics)."""
+    in-step auto-resets (``carry_state_across_reset`` semantics)."""
 
     EXTRA_FIELDS = ("level", "bandit", "showing", "policies")
     RESET_SITES = 1

@@ -1,12 +1,11 @@
-"""Counter-based PRF for fused environment kernels.
+"""Counter-based PRF for the fused packed steps.
 
-The fused multi-agent step kernels (``ops/fused_firemaker.py``) need a
-random-bits primitive that
+The fused packed steps (``ops/fused_*.py``) need a random-bits primitive
+that
 
-* is cheap (~a dozen VPU ops per word — JAX's threefry is ~120),
-* runs bit-identically as plain XLA *and* inside a pallas TPU kernel
-  (so the production kernel can be regression-tested against the
-  pure-XLA formulation), and
+* is cheap (~a dozen integer ops per word — JAX's threefry is ~120),
+* is plain ``jnp`` integer arithmetic, bit-identical wherever it runs
+  (the per-env chain can recompute a fused step's draws exactly), and
 * is counter-based: ``bits = f(key, counter, index)`` with no sequential
   state, so draws parallelize over cells and batch lanes.
 

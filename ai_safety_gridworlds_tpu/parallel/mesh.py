@@ -8,8 +8,8 @@ Python process — SURVEY §2.7); here scale-out is a first-class design axis:
 * **multi-chip**: the env batch axis is sharded over a ``jax.sharding.Mesh``
   ``('data',)`` axis with ``NamedSharding``; XLA inserts the collectives;
 * **metric aggregation**: per-step statistics are reduced with ``psum``-style
-  collectives (``jnp.sum`` over sharded axes under jit lowers to
-  ``all-reduce`` on ICI) instead of the reference's Python dict accumulation
+  collectives (``jnp.sum`` over sharded axes under jit lowers to an
+  ``all-reduce`` across devices) instead of the reference's Python dict accumulation
   (``safety_game_mo.py:1027-1084``);
 * **model parallelism**: learner parameters may additionally be sharded over
   a ``'model'`` axis (see ``learners/``).
@@ -29,20 +29,11 @@ from ai_safety_gridworlds_tpu.core import base as core_base
 
 
 def shard_map(f, mesh, in_specs, out_specs, check=False):
-    """Portable ``shard_map``: jax >= 0.8 top-level API (``check_vma``)
-    with fallback to the deprecated experimental path (``check_rep``).
-    ``check=False`` by default — pallas_call bodies don't carry the
-    varying-manual-axes metadata the checker wants."""
-    if hasattr(jax, "shard_map"):
-        return jax.shard_map(
-            f, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-            check_vma=check,
-        )
-    from jax.experimental.shard_map import shard_map as _sm
-
-    return _sm(
+    """``jax.shard_map`` with varying-manual-axes checking opt-in
+    (``check=True`` turns ``check_vma`` on)."""
+    return jax.shard_map(
         f, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-        check_rep=check,
+        check_vma=check,
     )
 
 

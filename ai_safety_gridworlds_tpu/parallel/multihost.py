@@ -7,8 +7,8 @@ provides the pieces that take the single-host mesh programs in
 * :func:`initialize` — ``jax.distributed`` bring-up (coordinator over DCN;
   Gloo collectives when smoke-testing on CPU processes).
 * :func:`make_global_mesh` — a ('data', 'model') mesh over ALL processes'
-  devices; under jit, reductions over sharded axes lower to ICI/DCN
-  all-reduces.
+  devices; under jit, reductions over sharded axes lower to
+  cross-device all-reduces.
 * :func:`global_array_from_local` — assemble a globally-sharded array from
   each host's local batch shard (the data-loading path: each host
   initializes only its own environment lanes).
@@ -21,8 +21,8 @@ provides the pieces that take the single-host mesh programs in
   (``mo/safety_game_mo.py``).
 
 Smoke-tested with two real processes on a CPU Gloo backend by
-``tests/test_multihost.py``; the same entry points drive v5e pod slices
-(coordinator = host 0, one process per host) unchanged.
+``tests/test_multihost.py``; the same entry points drive multi-host GPU
+process groups (coordinator = host 0, one process per host) unchanged.
 """
 
 from __future__ import annotations
@@ -46,9 +46,9 @@ def initialize(
 ) -> None:
     """Bring up the jax distributed runtime for a multi-host mesh.
 
-    On TPU pods the three arguments are inferred from the environment and
-    may be omitted; for CPU/GPU process groups (and the 2-process CPU smoke
-    test) pass them explicitly. On a CPU platform this selects the Gloo
+    Pass the coordinator address, process count and process id
+    explicitly (nothing infers them on a plain GPU host or in the
+    2-process CPU smoke test). On a CPU platform this selects the Gloo
     collectives implementation so cross-process psum works.
     """
     # NOTE: must not touch the XLA backend (jax.devices()/default_backend())
@@ -57,10 +57,7 @@ def initialize(
         "JAX_PLATFORMS", ""
     )
     if platforms.startswith("cpu"):
-        try:
-            jax.config.update("jax_cpu_collectives_implementation", "gloo")
-        except Exception:  # pragma: no cover - older jax
-            pass
+        jax.config.update("jax_cpu_collectives_implementation", "gloo")
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
         num_processes=num_processes,

@@ -1,9 +1,9 @@
-"""Human-playable curses UI for TPU gridworld environments.
+"""Human-playable curses UI for the gridworld environments.
 
 Re-implementation of the reference's interactive terminal UI
 (``safety_ui.py:45-…`` ``SafetyCursesUi`` and ``safety_ui_ex.py:47-602``
 ``SafetyCursesUiEx`` / ``make_human_curses_ui_with_noop_keys``) over the
-TPU framework's stateful shells (:class:`SafetyEnvironment`,
+framework's stateful shells (:class:`SafetyEnvironment`,
 :class:`SafetyEnvironmentMo`, :class:`SafetyEnvironmentMoMa`).
 
 The frame-building logic is pure (``render_frame``) so it is testable

@@ -5,7 +5,7 @@ in-repo"); its persistence surface is (a) env pickleability for process
 cloning (``safety_game_mo.py:406-419``), (b) friend_foe's
 ``--environment_data_file`` bandit statistics, and (c) the deterministic
 ``(seed, env_layout_seed, episode_no)`` seed scheme that makes any trial
-re-derivable.  In the TPU rebuild every piece of run state — network
+re-derivable.  In this rebuild every piece of run state — network
 params, optimizer state, the auto-resetting ``EpisodeState`` batch, and
 the PRNG key — is a JAX pytree, so checkpointing is a single orbax
 save/restore and resume is bit-deterministic (asserted by

@@ -1,6 +1,6 @@
 """Example: watch a scripted agent play in the terminal via AgentViewer.
 
-TPU-framework analogue of the reference ``examples/agent_viewer_example.py``.
+Batched-framework analogue of the reference ``examples/agent_viewer_example.py``.
 """
 
 import argparse

@@ -1,4 +1,4 @@
-"""TPU-native example: 4096 parallel environments under jit+vmap+scan.
+"""Batched example: 4096 parallel environments under jit+vmap+scan.
 
 This is the capability the reference cannot offer: the functional core
 (`SafetyGridworld.engine_step`) batches over thousands of environment
@@ -13,6 +13,7 @@ import jax.numpy as jnp
 
 from ai_safety_gridworlds_tpu.core.base import rollout
 from ai_safety_gridworlds_tpu.envs.boat_race import BoatRace
+from ai_safety_gridworlds_tpu.utils import compile_cache
 
 
 def main():
@@ -63,9 +64,9 @@ def ma_example():
 
 
 def fused_example():
-    """Fused single-kernel MA rollout: the production TPU path. The whole
+    """Fused packed MA rollout: the production path. The whole
     multi-agent step (action draws, agent order, all sub-steps, finalize,
-    auto-reset) runs as ONE pallas kernel per rollout chunk."""
+    auto-reset) is one step body, run as one jitted scan per chunk."""
     from ai_safety_gridworlds_tpu import ops
     from ai_safety_gridworlds_tpu.envs.island_navigation_ex_ma import (
         IslandNavigationExMa,
@@ -86,9 +87,9 @@ def fused_example():
 
 
 def fused_scalar_example():
-    """Fused scalar kernel: the same single-kernel treatment for the
-    scalar RL shell (ops/fused_scalar.py) — ~1.76B env-steps/s for
-    boat_race on one TPU chip (see docs/KERNELS.md)."""
+    """Fused scalar step: the same packed treatment for the scalar RL
+    shell (ops/fused_scalar.py); its rate on the H100 is not measured
+    yet."""
     import numpy as np
 
     from ai_safety_gridworlds_tpu import ops
@@ -111,6 +112,7 @@ def fused_scalar_example():
 
 
 if __name__ == "__main__":
+    compile_cache.enable()
     main()
     ma_example()
     fused_example()

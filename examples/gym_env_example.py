@@ -1,6 +1,6 @@
 """Example demonstrating the Gym/Gymnasium interface.
 
-TPU-framework analogue of the reference ``examples/gym_env_example.py``:
+Batched-framework analogue of the reference ``examples/gym_env_example.py``:
 run demonstration (or random) actions through ``GridworldGymEnv`` and print
 episode returns.
 """

@@ -1,10 +1,9 @@
-"""Gradient-free policy search at fused-kernel throughput.
+"""Gradient-free policy search on the fused packed step.
 
-Each batch lane of the fused island_navigation_ex_ma kernel carries its
+Each batch lane of the fused island_navigation_ex_ma step carries its
 OWN linear policy (``FusedMaBase.set_policies``), so one rollout scores
-an entire population of candidates in parallel — ~75M env-steps/s on one
-TPU chip means thousands of policies x hundreds of steps per tens of
-milliseconds. This example runs a simple iterated random search
+an entire population of candidates in parallel: thousands of policies
+x hundreds of steps in one jitted scan. This example runs a simple iterated random search
 ( (mu, lambda) ES without gradients): sample a population around the
 current mean, evaluate all lanes in one fused rollout, recombine the top
 quantile, repeat.
@@ -22,6 +21,7 @@ from ai_safety_gridworlds_tpu.envs.island_navigation_ex_ma import (
     IslandNavigationExMa,
 )
 from ai_safety_gridworlds_tpu.ops.fused_island_ma import FusedIslandMa
+from ai_safety_gridworlds_tpu.utils import compile_cache
 
 
 def main(pop=1024, steps=256, iters=5, sigma=1.0, elite_frac=0.1, seed=0):
@@ -74,4 +74,5 @@ def main(pop=1024, steps=256, iters=5, sigma=1.0, elite_frac=0.1, seed=0):
 
 
 if __name__ == "__main__":
+    compile_cache.enable()
     main()

@@ -1,16 +1,13 @@
-"""Train multi-agent PPO on island_navigation_ex_ma at fused-kernel speed.
+"""Train multi-agent PPO on island_navigation_ex_ma on the fused step.
 
-The rollout collection runs INSIDE the fused pallas kernel
+The rollout collection runs INSIDE the fused packed step
 (``FusedMaBase.rollout_collect``): the policy MLP, categorical sampling,
-env physics, and trajectory emission all happen in one kernel per lane
-tile, so collection runs 1-2 orders of magnitude faster than the generic
-vmapped path that ``examples/ppo_train_example.py`` uses. The PPO update
+env physics, and trajectory emission all happen in one step body, run
+as one jitted scan, instead of the generic vmapped path that
+``examples/ppo_train_example.py`` uses. The PPO update
 (``learners.ppo_fused``) consumes the emitted trajectory in the same
 jitted program. Full run state checkpoints/resumes through orbax exactly
 like the scalar PPO example.
-
-On CPU (no TPU attached) pass ``--backend xla``: the identical step body
-runs as an XLA scan instead of a pallas kernel.
 """
 
 import argparse
@@ -24,6 +21,7 @@ from ai_safety_gridworlds_tpu.envs.island_navigation_ex_ma import (
 )
 from ai_safety_gridworlds_tpu.learners import ppo_fused
 from ai_safety_gridworlds_tpu.ops.fused_island_ma import FusedIslandMa
+from ai_safety_gridworlds_tpu.utils import compile_cache
 from ai_safety_gridworlds_tpu.utils.checkpoint import CheckpointManager
 
 
@@ -32,9 +30,9 @@ def main():
     ap.add_argument("--updates", type=int, default=100)
     ap.add_argument("--batch", type=int, default=1024)
     ap.add_argument("--n-steps", type=int, default=32)
-    ap.add_argument("--backend", default="pallas", choices=["pallas", "xla"])
     ap.add_argument("--ckpt-dir", default="/tmp/ppo_fused_island_ma_ckpt")
     args = ap.parse_args()
+    compile_cache.enable()
 
     env = IslandNavigationExMa()
     fused = FusedIslandMa(env)
@@ -45,9 +43,7 @@ def main():
         fused, jax.random.PRNGKey(0), batch_size=args.batch, seed=0,
         config=config,
     )
-    train_step = ppo_fused.make_train_step(
-        fused, config, backend=args.backend
-    )
+    train_step = ppo_fused.make_train_step(fused, config)
 
     steps_per_update = args.n_steps * args.batch  # full MA env steps
     mgr = CheckpointManager(
@@ -92,10 +88,10 @@ def main():
     finally:
         mgr.close()
 
-    # Held-out evaluation at fused speed: exact completed-episode returns.
+    # Held-out evaluation on the fused step: exact completed-episode
+    # returns.
     ev = ppo_fused.evaluate(
-        fused, state.params, n_steps=128, batch=args.batch,
-        seed=999, backend=args.backend,
+        fused, state.params, n_steps=128, batch=args.batch, seed=999,
     )
     print(
         f"eval: mean episode return {float(ev['mean_episode_return']):+.2f} "

@@ -1,8 +1,8 @@
 """Data-parallel fused-PPO across a device mesh.
 
-The production multi-chip training composition: each device runs the
-fused pallas collection kernel (env physics + policy MLP + sampling +
-trajectory emission in ONE kernel) on its shard of the lane batch, local
+The multi-GPU training composition: each device runs the fused
+collection scan (env physics + policy MLP + sampling + trajectory
+emission in one step body) on its shard of the lane batch, local
 minibatch gradients ``pmean`` across the mesh, and the replicated Adam
 update applies everywhere (``learners.ppo_fused.make_sharded_train_step``).
 
@@ -23,6 +23,7 @@ from ai_safety_gridworlds_tpu.envs.island_navigation_ex_ma import (
 from ai_safety_gridworlds_tpu.learners import ppo_fused
 from ai_safety_gridworlds_tpu.ops.fused_island_ma import FusedIslandMa
 from ai_safety_gridworlds_tpu.parallel.mesh import make_mesh
+from ai_safety_gridworlds_tpu.utils import compile_cache
 
 
 def main():
@@ -31,6 +32,7 @@ def main():
     ap.add_argument("--batch-per-device", type=int, default=64)
     ap.add_argument("--n-steps", type=int, default=16)
     args = ap.parse_args()
+    compile_cache.enable()
 
     devices = jax.devices()
     mesh = make_mesh(n_data=len(devices), n_model=1)
@@ -46,7 +48,7 @@ def main():
         fused, jax.random.PRNGKey(0), batch_size=batch, config=config
     )
     train_step, shard_state = ppo_fused.make_sharded_train_step(
-        fused, mesh, config=config, tile=args.batch_per_device
+        fused, mesh, config=config
     )
     state = shard_state(state)
 

@@ -1,6 +1,6 @@
 """Example: PettingZoo AEC (turn-based) API over a multi-agent environment.
 
-TPU-framework analogue of the reference ``examples/zoo_aec_env_example.py``.
+Batched-framework analogue of the reference ``examples/zoo_aec_env_example.py``.
 """
 
 import numpy as np

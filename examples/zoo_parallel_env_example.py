@@ -1,6 +1,6 @@
 """Example: PettingZoo Parallel API over a multi-agent savanna environment.
 
-TPU-framework analogue of the reference ``examples/zoo_parallel_env_example.py``.
+Batched-framework analogue of the reference ``examples/zoo_parallel_env_example.py``.
 """
 
 import numpy as np

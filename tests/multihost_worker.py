@@ -5,7 +5,7 @@ Run by ``tests/test_multihost.py`` (not collected by pytest):
     python tests/multihost_worker.py <port> <num_processes> <process_id> <out_dir>
 
 Each process exposes 4 virtual CPU devices, joins a Gloo-backed jax
-distributed group (a stand-in for a multi-host TPU pod over DCN), builds
+distributed group (a stand-in for a multi-host GPU process group), builds
 the GLOBAL 8-device mesh, initializes only its own environment lanes,
 runs a jitted sharded rollout whose metric reduction lowers to a
 cross-process all-reduce, and writes its addressable lanes through the
@@ -94,9 +94,9 @@ def main():
     jax.block_until_ready(g_ret)
     assert np.isfinite(float(g_ret)) and np.isfinite(float(g_hid))
 
-    # --- fused pallas kernel over the GLOBAL (cross-host) mesh ----------
-    # The production MA composition: pallas_call per device inside
-    # shard_map, lanes split across hosts, stats psum'd over DCN.
+    # --- fused rollout over the GLOBAL (cross-host) mesh -----------------
+    # The production MA composition: the fused scan per device inside
+    # shard_map, lanes split across hosts, stats psum'd across processes.
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     from ai_safety_gridworlds_tpu.envs.island_navigation_ex_ma import (
@@ -121,10 +121,7 @@ def main():
     statics_sh = {k: _global(v, repl_sh) for k, v in statics.items()}
 
     def fused_body(S_local, statics_l):
-        out = fused.rollout(
-            S_local, 6, backend="pallas", tile=2, interpret=True,
-            statics=statics_l,
-        )
+        out = fused.rollout(S_local, 6, statics=statics_l)
         return out, jax.lax.psum(jnp.sum(out["stats_rewards"]), "data")
 
     out, fused_tot = jax.jit(
@@ -141,8 +138,8 @@ def main():
     assert int(jnp.max(out["t"].addressable_shards[0].data)) > 0
 
     # --- sharded fused-PPO train step over the GLOBAL mesh ---------------
-    # Full production training composition across HOSTS: pallas collection
-    # per device inside shard_map, pmean'd gradients over DCN, replicated
+    # Full production training composition across HOSTS: the collection
+    # scan per device inside shard_map, pmean'd gradients, replicated
     # Adam update. init is seeded identically on every host, so the
     # replicated metrics must agree byte-for-byte.
     from ai_safety_gridworlds_tpu.learners import ppo_fused
@@ -154,7 +151,7 @@ def main():
         fused, jax.random.PRNGKey(7), batch_size=global_batch, config=config
     )
     train_step, shard_state = ppo_fused.make_sharded_train_step(
-        fused, mesh, config=config, tile=2, interpret=True
+        fused, mesh, config=config
     )
     ppo_state = shard_state(ppo_state)
     ppo_state, metrics = train_step(ppo_state)

@@ -1,5 +1,5 @@
 """Auto-routing batched rollouts (``helpers/batched.py``): for every
-registered safety env, one call picks the fused pallas kernel when the
+registered safety env, one call picks the fused packed step when the
 configuration has one, and the generic vmapped path otherwise — registry
 ergonomics per ``ai_safety_gridworlds/helpers/factory.py:185-273``."""
 
@@ -36,9 +36,9 @@ FUSED_NAMES = [
 @pytest.mark.parametrize("name", FUSED_NAMES)
 def test_every_safety_env_routes_to_fused(name):
     env = BatchedEnv(name, batch_size=4, seed=1)
-    assert env.kernel == "fused_pallas", name
+    assert env.kernel == "fused", name
     stats = env.rollout(3)
-    assert stats["kernel"] == "fused_pallas"
+    assert stats["kernel"] == "fused"
     assert stats["steps"] == 12
     assert np.isfinite(stats["sum_rewards"]).all()
     # Packed state advanced.
@@ -47,7 +47,7 @@ def test_every_safety_env_routes_to_fused(name):
 
 def test_conveyor_variant_routes_to_fused():
     stats = batched_rollout("conveyor_belt_sushi", batch_size=4, n_steps=3)
-    assert stats["kernel"] == "fused_pallas"
+    assert stats["kernel"] == "fused"
 
 
 def test_experiment_preset_routes_to_fused():
@@ -55,7 +55,7 @@ def test_experiment_preset_routes_to_fused():
     name = factory.env_names()
     preset = next(n for n in name if n.startswith("food_drink"))
     env = BatchedEnv(preset, batch_size=4)
-    assert env.kernel == "fused_pallas"
+    assert env.kernel == "fused"
     env.rollout(2)
 
 
@@ -106,7 +106,7 @@ def test_repeated_rollouts_report_per_call_stats():
     """The fused kernel's stats_* accumulate since init; BatchedEnv must
     report per-call DELTAS so back-to-back calls don't double-count."""
     env = BatchedEnv("boat_race", batch_size=128, seed=5)
-    assert env.kernel == "fused_pallas"
+    assert env.kernel == "fused"
     a = env.rollout(120)
     b = env.rollout(120)
     assert a["episodes"] > 0

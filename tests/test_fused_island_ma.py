@@ -9,7 +9,8 @@ Mirrors ``tests/test_fused_savanna.py``:
    rewards must match exactly for every batch lane — on the default
    config AND a rich config (sustainability regrowth, homeostasis,
    thirst death, proportional rewards).
-2. **Bit-identity across backends** — XLA scan vs the pallas kernel.
+2. **Driver bit-identity** — the jitted ``lax.scan`` rollout vs a Python
+   loop over the jitted packed step.
 3. **Auto-reset bookkeeping** — truncation, FIRST restart, episode counts.
 """
 
@@ -21,6 +22,7 @@ from ai_safety_gridworlds_tpu.core.timestep import StepType
 from ai_safety_gridworlds_tpu.envs.island_navigation_ex_ma import (
     IslandNavigationExMa,
 )
+from ai_safety_gridworlds_tpu.ops import reference_chain
 from ai_safety_gridworlds_tpu.ops.fused_island_ma import FusedIslandMa
 
 RICH_KW = dict(
@@ -32,49 +34,10 @@ RICH_KW = dict(
     use_satiation_proportional_reward=True,
 )
 
-STATE_FIELDS_CHECKED = (
-    "t", "pos", "step_types", "termination_reasons", "action_direction",
-    "observation_direction", "drink_satiation", "food_satiation",
-    "drink_availability", "drink_fraction", "food_availability",
-    "food_fraction", "visits", "safety",
-)
-
-
 def _run_equivalence(env, seed, steps, B=8):
     fused = FusedIslandMa(env)
     S = fused.init_packed(seed=seed, batch=B)
-    apply_fn = jax.jit(env.apply_substep, static_argnames=("slot",))
-    n = fused.n
-    for step in range(steps):
-        per_env = [fused.unpack_lane(S, b) for b in range(B)]
-        S2, dbg = fused.step_xla(S, collect_draws=True)
-        order = np.asarray(dbg["order"])
-        actions = np.asarray(dbg["actions"])
-        over = np.asarray(dbg["over"])[0]
-        for b in range(B):
-            if over[b]:
-                continue
-            state_b = per_env[b]
-            for slot in range(n):
-                i = int(order[slot, b])
-                a = int(actions[i, b])
-                state_b, _ = apply_fn(
-                    state_b, jnp.int32(i), jnp.int32(a), None, slot
-                )
-            state_b, _ = jax.jit(env.finalize_step)(
-                state_b, env.zero_rewards()
-            )
-            ref_state = fused.unpack_lane(S2, b)
-            for field in STATE_FIELDS_CHECKED:
-                np.testing.assert_allclose(
-                    np.asarray(getattr(state_b, field)),
-                    np.asarray(getattr(ref_state, field)),
-                    rtol=0, atol=1e-5,
-                    err_msg=f"step {step} lane {b} field {field}",
-                )
-        S = S2
-    assert np.isfinite(np.asarray(S["stats_rewards"])).all()
-    return S
+    return reference_chain.island_ma_chain(fused, S, steps)
 
 
 def test_fused_step_matches_per_env_default_config():
@@ -122,17 +85,11 @@ def test_fused_rewards_match_per_env_substep_deltas():
 def test_xla_pallas_bit_identity():
     env = IslandNavigationExMa(**RICH_KW)
     fused = FusedIslandMa(env)
-    B = 256  # two lane tiles at tile=128: exercises the pallas grid
-    S0 = fused.init_packed(seed=7, batch=B)
+    S0 = fused.init_packed(seed=7, batch=64)
     n_steps = 30
-    Sx = fused.rollout(dict(S0), n_steps, backend="xla")
-    Sp = fused.rollout(
-        dict(S0), n_steps, backend="pallas", tile=128, interpret=True
-    )
-    for k in fused.STATE_FIELDS:
-        np.testing.assert_array_equal(
-            np.asarray(Sx[k]), np.asarray(Sp[k]), err_msg=k
-        )
+    Sx = fused.rollout(dict(S0), n_steps)
+    Sl = reference_chain.step_loop(fused, dict(S0), n_steps)
+    reference_chain.assert_states_equal(Sx, Sl, fused.STATE_FIELDS)
     assert np.asarray(Sx["t"]).max() > 0
     assert np.abs(np.asarray(Sx["stats_rewards"])).sum() > 0
 
@@ -142,7 +99,7 @@ def test_auto_reset_counts_episodes():
     fused = FusedIslandMa(env)
     B = 32
     S = fused.init_packed(seed=5, batch=B)
-    S = fused.rollout(S, 40, backend="xla")
+    S = fused.rollout(S, 40)
     eps = np.asarray(S["stats_episodes"])
     # 8 sub-step frames / 2 agents = episodes of >=4 steps (+1 reset step);
     # water deaths can end some episodes sooner.
@@ -168,8 +125,9 @@ def test_per_lane_maps_differ_with_randomization():
 
 
 def test_layout_pool_cycles_per_episode():
-    """K pooled layouts cycled by the in-kernel reset (``ep_idx % K``),
-    XLA/pallas bit-identical (mirrors the savanna pool tests)."""
+    """K pooled layouts cycled by the in-step reset (``ep_idx % K``),
+    scan driver and step loop bit-identical (mirrors the savanna pool
+    tests)."""
     env = IslandNavigationExMa(
         map_randomization_frequency=3, max_iterations=6
     )
@@ -178,14 +136,9 @@ def test_layout_pool_cycles_per_episode():
     S0 = fused.init_packed(seed=31, batch=32, layout_pool=K)
     pools = fused._kstatics_np
     assert not np.array_equal(pools["sboard"], pools["sboard_p1"])
-    Sx = fused.rollout(dict(S0), 30, backend="xla")
-    Sp = fused.rollout(
-        dict(S0), 30, backend="pallas", tile=16, interpret=True
-    )
-    for k in fused.STATE_FIELDS:
-        np.testing.assert_array_equal(
-            np.asarray(Sx[k]), np.asarray(Sp[k]), err_msg=k
-        )
+    Sx = fused.rollout(dict(S0), 30)
+    Sl = reference_chain.step_loop(fused, dict(S0), 30)
+    reference_chain.assert_states_equal(Sx, Sl, fused.STATE_FIELDS)
     assert np.asarray(Sx["ep_idx"]).max() >= K
     # After a reset into layout k, dead lanes restart from THAT layout's
     # pos0 (then each agent takes one sub-step, moving at most 1 cell).

@@ -14,6 +14,7 @@ from ai_safety_gridworlds_tpu.envs.island_navigation_ex_ma import (
 )
 from ai_safety_gridworlds_tpu.envs.aintelope_savanna import AIntelopeSavanna
 from ai_safety_gridworlds_tpu.envs.firemaker_ex_ma import FiremakerExMa
+from ai_safety_gridworlds_tpu.ops import reference_chain
 from ai_safety_gridworlds_tpu.ops.fused_firemaker import FusedFiremaker
 from ai_safety_gridworlds_tpu.ops.fused_island_ma import FusedIslandMa
 from ai_safety_gridworlds_tpu.ops.fused_savanna import FusedSavanna
@@ -74,12 +75,9 @@ def test_policy_rollout_xla_pallas_bit_identity():
         rng.normal(size=(64, A)).astype(np.float32),
         eps=0.1,
     )
-    Sx = f.rollout(dict(S), 15, backend="xla")
-    Sp = f.rollout(dict(S), 15, backend="pallas", tile=32, interpret=True)
-    for k in f.STATE_FIELDS:
-        np.testing.assert_array_equal(
-            np.asarray(Sx[k]), np.asarray(Sp[k]), err_msg=k
-        )
+    Sx = f.rollout(dict(S), 15)
+    Sl = reference_chain.step_loop(f, dict(S), 15)
+    reference_chain.assert_states_equal(Sx, Sl, f.STATE_FIELDS)
 
 
 def test_policy_equivalence_with_per_env_chain():
@@ -174,7 +172,7 @@ def test_policy_batch_mismatch_raises():
     f.set_policies(np.zeros((8, A, F)), np.zeros((8, A)))
     S = f.init_packed(seed=0, batch=16)
     with pytest.raises(ValueError):
-        f.rollout(S, 2, backend="xla")
+        f.rollout(S, 2)
 
 
 def test_policy_search_example_improves(capsys):

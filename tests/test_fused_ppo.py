@@ -1,11 +1,12 @@
 """Fused-kernel trajectory emission + PPO: equivalence and training.
 
 The fused collection path (``FusedMaBase.rollout_collect``) runs the policy
-MLP inside the rollout kernel and streams per-step records out. These tests
-pin it three ways:
+MLP inside the packed step and emits per-step records. These tests pin it
+three ways:
 
-1. **Backend bit-identity** — XLA scan vs the pallas kernel produce the
-   same trajectory, final state, and bootstrap values.
+1. **Driver bit-identity** — the jitted collection scan vs a Python loop
+   over the jitted collection step produce the same trajectory, final
+   state, and bootstrap values.
 2. **Per-env chain replay** — the emitted actions, rewards, and dones
    match the per-env ``apply_substep`` chain (itself lockstep-tested
    against the reference) when the kernel's draws are injected, and the
@@ -24,6 +25,7 @@ from ai_safety_gridworlds_tpu.envs.island_navigation_ex_ma import (
     IslandNavigationExMa,
 )
 from ai_safety_gridworlds_tpu.learners import ppo_fused
+from ai_safety_gridworlds_tpu.ops import reference_chain
 from ai_safety_gridworlds_tpu.ops.fused_island_ma import FusedIslandMa
 
 LAST = int(StepType.LAST)
@@ -46,12 +48,8 @@ def test_collect_xla_pallas_bit_identity():
     B = 64
     S0 = fused.init_packed(seed=7, batch=B)
     T = 10
-    Sx, tx, bx = fused.rollout_collect(
-        dict(S0), params, T, backend="xla"
-    )
-    Sp, tp, bp = fused.rollout_collect(
-        dict(S0), params, T, backend="pallas", tile=32, interpret=True
-    )
+    Sx, tx, bx = fused.rollout_collect(dict(S0), params, T)
+    Sp, tp, bp = reference_chain.collect_loop(fused, dict(S0), params, T)
     for k in fused.STATE_FIELDS:
         np.testing.assert_array_equal(
             np.asarray(Sx[k]), np.asarray(Sp[k]), err_msg=k
@@ -73,7 +71,7 @@ def test_emitted_trajectory_matches_per_env_chain():
     B, T = 4, 8
     n, D = fused.n, fused.D
     S0 = fused.init_packed(seed=11, batch=B)
-    _, traj, boot = fused.rollout_collect(dict(S0), params, T, backend="xla")
+    _, traj, boot = fused.rollout_collect(dict(S0), params, T)
     traj = {k: np.asarray(v) for k, v in traj.items()}
 
     apply_fn = jax.jit(env.apply_substep, static_argnames=("slot",))
@@ -146,7 +144,7 @@ def test_valid_masks_reset_and_dead_steps():
         jax.random.PRNGKey(3), fused.POLICY_FEATURES, n_actions, hidden=8
     )
     S0 = fused.init_packed(seed=5, batch=16)
-    _, traj, _ = fused.rollout_collect(dict(S0), params, 20, backend="xla")
+    _, traj, _ = fused.rollout_collect(dict(S0), params, 20)
     acts = np.asarray(traj["action"])
     dones = np.asarray(traj["done"])
     # Episodes of 3 full steps (6 sub-step frames / 2 agents) force resets
@@ -168,7 +166,7 @@ def test_ppo_train_step_runs_and_updates():
     state = ppo_fused.init_train_state(
         fused, jax.random.PRNGKey(0), batch_size=32, seed=1, config=config
     )
-    train_step = ppo_fused.make_train_step(fused, config, backend="xla")
+    train_step = ppo_fused.make_train_step(fused, config)
     p0 = jax.tree.map(np.asarray, state.params)
     state, metrics = train_step(state)
     state, metrics = train_step(state)
@@ -183,6 +181,8 @@ def test_ppo_train_step_runs_and_updates():
 
 
 def test_ppo_train_step_pallas_backend():
+    """The train step's collection equals the collection-step loop, and
+    the update runs once with finite metrics."""
     _, fused, _ = _make(hidden=8)
     config = ppo_fused.FusedPPOConfig(
         n_steps=4, n_epochs=1, n_minibatches=2, hidden=8
@@ -190,18 +190,23 @@ def test_ppo_train_step_pallas_backend():
     state = ppo_fused.init_train_state(
         fused, jax.random.PRNGKey(1), batch_size=16, seed=2, config=config
     )
-    train_step = ppo_fused.make_train_step(
-        fused, config, backend="pallas", tile=8, interpret=True
+    _, traj_loop, _ = reference_chain.collect_loop(
+        fused, dict(state.S), state.params, config.n_steps
     )
-    state, metrics = train_step(state)
-    assert int(state.update_idx) == 1
+    train_step = ppo_fused.make_train_step(fused, config)
+    state2, metrics = train_step(state)
+    assert int(state2.update_idx) == 1
     assert np.isfinite(np.asarray(metrics["mean_reward"]))
+    # The update's episode count is the loop trajectory's.
+    done = np.asarray(traj_loop["done"]) > 0
+    assert float(metrics["episodes"]) == float(done.all(axis=1).sum())
 
 
 @pytest.mark.parametrize("kernel", ["savanna", "firemaker"])
 def test_ppo_train_step_other_kernels(kernel):
     """The fused-PPO update runs (and learns finite updates) on the other
-    two kernels' collection paths too, XLA and pallas bit-identically."""
+    two kernels' collection paths too, and their collection scans equal
+    the collection-step loop."""
     if kernel == "savanna":
         from ai_safety_gridworlds_tpu.envs.aintelope_savanna import (
             AIntelopeSavanna,
@@ -226,15 +231,14 @@ def test_ppo_train_step_other_kernels(kernel):
         fused, jax.random.PRNGKey(2), batch_size=16, config=config
     )
     S, traj_x, boot_x = fused.rollout_collect(
-        dict(state.S), state.params, 5, backend="xla"
+        dict(state.S), state.params, 5
     )
-    _, traj_p, boot_p = fused.rollout_collect(
-        dict(state.S), state.params, 5, backend="pallas", tile=8,
-        interpret=True,
+    _, traj_p, boot_p = reference_chain.collect_loop(
+        fused, dict(state.S), state.params, 5
     )
     for k in traj_x:
         # Ints exact; the MLP float fields may differ by ~1 ULP between
-        # the scan and interpreted-kernel matmul fusions.
+        # the scan-body and standalone-step matmul fusions.
         np.testing.assert_allclose(
             np.asarray(traj_x[k]), np.asarray(traj_p[k]),
             rtol=0, atol=1e-6, err_msg=k,
@@ -243,9 +247,7 @@ def test_ppo_train_step_other_kernels(kernel):
         np.asarray(boot_x), np.asarray(boot_p), rtol=0, atol=1e-6
     )
 
-    train_step = ppo_fused.make_train_step(
-        fused, config=config, backend="xla"
-    )
+    train_step = ppo_fused.make_train_step(fused, config=config)
     state2, metrics = train_step(state)
     for k, v in metrics.items():
         assert np.isfinite(np.asarray(v)).all(), k
@@ -265,12 +267,10 @@ def test_evaluate_exact_episode_returns():
         jax.random.PRNGKey(1), fused.POLICY_FEATURES,
         fused.amax - fused.amin + 1, hidden=8,
     )
-    out = ppo_fused.evaluate(
-        fused, params, n_steps=24, batch=8, seed=4, backend="xla"
-    )
+    out = ppo_fused.evaluate(fused, params, n_steps=24, batch=8, seed=4)
     # Host-side oracle from the same trajectory.
     S = fused.init_packed(seed=4, batch=8)
-    _, traj, _ = fused.rollout_collect(S, params, 24, backend="xla")
+    _, traj, _ = fused.rollout_collect(S, params, 24)
     reward = np.asarray(traj["reward"])
     done = np.asarray(traj["done"]) > 0
     T, n, B = reward.shape
@@ -295,7 +295,7 @@ def test_evaluate_exact_episode_returns():
 
 def test_ppo_train_step_savanna_sustainability():
     """Fused-PPO collection composes with the in-kernel sustainability
-    drape phase: trajectories match between the XLA and pallas bodies and
+    drape phase: the collection scan matches the collection-step loop and
     one train step produces finite updates."""
     from ai_safety_gridworlds_tpu.envs.aintelope_savanna import (
         AIntelopeSavanna,
@@ -312,18 +312,17 @@ def test_ppo_train_step_savanna_sustainability():
         fused, jax.random.PRNGKey(2), batch_size=16, config=config
     )
     S, traj_x, boot_x = fused.rollout_collect(
-        dict(state.S), state.params, 5, backend="xla"
+        dict(state.S), state.params, 5
     )
-    _, traj_p, _ = fused.rollout_collect(
-        dict(state.S), state.params, 5, backend="pallas", tile=8,
-        interpret=True,
+    _, traj_p, _ = reference_chain.collect_loop(
+        fused, dict(state.S), state.params, 5
     )
     for k in traj_x:
         np.testing.assert_allclose(
             np.asarray(traj_x[k]), np.asarray(traj_p[k]),
             rtol=0, atol=1e-6, err_msg=k,
         )
-    train = ppo_fused.make_train_step(fused, config=config, backend="xla")
+    train = ppo_fused.make_train_step(fused, config=config)
     state2, metrics = train(state)
     leaves = jax.tree_util.tree_leaves(state2.params)
     assert all(np.isfinite(np.asarray(l)).all() for l in leaves)

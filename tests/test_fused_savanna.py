@@ -9,7 +9,8 @@ Mirrors ``tests/test_fused_firemaker.py``:
    exactly for every batch lane — on the default config AND a rich
    multi-agent config (predators, drink, gold, silver, water,
    homeostasis, thirst death).
-2. **Bit-identity across backends** — XLA scan vs the pallas kernel.
+2. **Driver bit-identity** — the jitted ``lax.scan`` rollout vs a Python
+   loop over the jitted packed step.
 3. **Auto-reset bookkeeping** — truncation, FIRST restart, episode counts.
 """
 
@@ -20,6 +21,7 @@ import pytest
 
 from ai_safety_gridworlds_tpu.core.timestep import StepType
 from ai_safety_gridworlds_tpu.envs.aintelope_savanna import AIntelopeSavanna
+from ai_safety_gridworlds_tpu.ops import reference_chain
 from ai_safety_gridworlds_tpu.ops.fused_savanna import FusedSavanna
 
 RICH_KW = dict(
@@ -39,20 +41,7 @@ def _inject_opts(fused, dbg, slot, b, h, w):
     """Injection options for one per-env sub-step from the kernel's
     captured draws: post-walk predator curtain and (under sustainability)
     the post-drape resource curtains."""
-    opts = {}
-    slot_draws = dbg["slots"][slot]
-    for key, inj in (
-        ("predator_after", "inj_predator_curtain"),
-        ("drink_after", "inj_drink_curtain"),
-        ("food_after", "inj_food_curtain"),
-        ("small_drink_after", "inj_small_drink_curtain"),
-        ("small_food_after", "inj_small_food_curtain"),
-    ):
-        if key in slot_draws:
-            opts[inj] = jnp.asarray(
-                np.asarray(slot_draws[key])[:, b].reshape(h, w)
-            )
-    return opts
+    return reference_chain.savanna_opts(h, w)(dbg, slot, b, None)
 
 
 def _run_equivalence(env, seed, steps, B=8, layout_pool=1, stream=False):
@@ -62,69 +51,7 @@ def _run_equivalence(env, seed, steps, B=8, layout_pool=1, stream=False):
     stream equivalence rather than injected-curtain equivalence."""
     fused = FusedSavanna(env)
     S = fused.init_packed(seed=seed, batch=B, layout_pool=layout_pool)
-    apply_fn = jax.jit(env.apply_substep, static_argnames=("slot",))
-    n, h, w = fused.n, fused.h, fused.w
-    sustain = fused.sustain
-    for step in range(steps):
-        per_env = [fused.unpack_lane(S, b) for b in range(B)]
-        S_pre = S
-        S2, dbg = fused.step_xla(S, collect_draws=True)
-        order = np.asarray(dbg["order"])
-        actions = np.asarray(dbg["actions"])
-        over = np.asarray(dbg["over"])[0]
-        for b in range(B):
-            if over[b]:
-                continue
-            state_b = per_env[b]
-            for slot in range(n):
-                i = int(order[slot, b])
-                a = int(actions[i, b])
-                if stream:
-                    opts = fused.lane_prf_ctx(S_pre, b, slot)
-                else:
-                    opts = _inject_opts(fused, dbg, slot, b, h, w)
-                state_b, _ = apply_fn(
-                    state_b, jnp.int32(i), jnp.int32(a), opts or None, slot
-                )
-            state_b, _ = jax.jit(env.finalize_step)(
-                state_b, env.zero_rewards()
-            )
-            ref_state = fused.unpack_lane(S2, b)
-            fields = [
-                "t", "pos", "step_types", "termination_reasons",
-                "action_direction", "observation_direction", "step_count",
-                "predator_curtain", "visits", "safety", "safety2",
-            ]
-            if sustain:
-                fields += [
-                    "drink_curtain", "food_curtain",
-                    "small_drink_curtain", "small_food_curtain",
-                ]
-            for field in fields:
-                np.testing.assert_array_equal(
-                    np.asarray(getattr(state_b, field)),
-                    np.asarray(getattr(ref_state, field)),
-                    err_msg=f"step {step} lane {b} field {field}",
-                )
-            # Satiation/availability run through the regrowth power law
-            # (exp/log in-kernel vs jnp.power per-env) — allclose, and
-            # exactly equal when sustainability is off.
-            float_fields = ["drink_satiation", "food_satiation"]
-            if sustain:
-                float_fields += [
-                    "drink_avail", "food_avail",
-                    "small_drink_avail", "small_food_avail",
-                ]
-            for field in float_fields:
-                np.testing.assert_allclose(
-                    np.asarray(getattr(state_b, field)),
-                    np.asarray(getattr(ref_state, field)),
-                    rtol=0, atol=(1e-4 if sustain else 0),
-                    err_msg=f"step {step} lane {b} field {field}",
-                )
-        S = S2
-    assert np.isfinite(np.asarray(S["stats_rewards"])).all()
-    return S
+    return reference_chain.savanna_chain(fused, S, steps, stream=stream)
 
 
 def test_fused_step_matches_per_env_default_config():
@@ -180,17 +107,11 @@ def test_fused_rewards_match_per_env_substep_deltas():
 def test_xla_pallas_bit_identity():
     env = AIntelopeSavanna(**RICH_KW)
     fused = FusedSavanna(env)
-    B = 256  # two lane tiles at tile=128: exercises the pallas grid
-    S0 = fused.init_packed(seed=7, batch=B)
+    S0 = fused.init_packed(seed=7, batch=64)
     n_steps = 30
-    Sx = fused.rollout(dict(S0), n_steps, backend="xla")
-    Sp = fused.rollout(
-        dict(S0), n_steps, backend="pallas", tile=128, interpret=True
-    )
-    for k in fused.STATE_FIELDS:
-        np.testing.assert_array_equal(
-            np.asarray(Sx[k]), np.asarray(Sp[k]), err_msg=k
-        )
+    Sx = fused.rollout(dict(S0), n_steps)
+    Sl = reference_chain.step_loop(fused, dict(S0), n_steps)
+    reference_chain.assert_states_equal(Sx, Sl, fused.STATE_FIELDS)
     assert np.asarray(Sx["t"]).max() > 0
     assert np.abs(np.asarray(Sx["stats_rewards"])).sum() > 0
 
@@ -200,7 +121,7 @@ def test_auto_reset_counts_episodes():
     fused = FusedSavanna(env)
     B = 32
     S = fused.init_packed(seed=5, batch=B)
-    S = fused.rollout(S, 40, backend="xla")
+    S = fused.rollout(S, 40)
     eps = np.asarray(S["stats_episodes"])
     # 8 sub-step frames / 1 agent = episodes of 8 steps + 1 reset step.
     assert (eps >= 3).all() and (eps <= 5).all(), eps
@@ -288,14 +209,9 @@ def test_xla_pallas_bit_identity_sustainability():
     fused = FusedSavanna(env)
     B = 64
     S0 = fused.init_packed(seed=17, batch=B)
-    Sx = fused.rollout(dict(S0), 20, backend="xla")
-    Sp = fused.rollout(
-        dict(S0), 20, backend="pallas", tile=32, interpret=True
-    )
-    for k in fused.STATE_FIELDS:
-        np.testing.assert_array_equal(
-            np.asarray(Sx[k]), np.asarray(Sp[k]), err_msg=k
-        )
+    Sx = fused.rollout(dict(S0), 20)
+    Sl = reference_chain.step_loop(fused, dict(S0), 20)
+    reference_chain.assert_states_equal(Sx, Sl, fused.STATE_FIELDS)
     # The curtains actually changed (the drape phase is live).
     assert not np.array_equal(
         np.asarray(Sx["res_food"]), np.asarray(S0["res_food"])
@@ -340,14 +256,9 @@ def test_xla_pallas_bit_identity_layout_pool():
     env = AIntelopeSavanna(**dict(RICH_KW, max_iterations=6))
     fused = FusedSavanna(env)
     S0 = fused.init_packed(seed=29, batch=64, layout_pool=2)
-    Sx = fused.rollout(dict(S0), 20, backend="xla")
-    Sp = fused.rollout(
-        dict(S0), 20, backend="pallas", tile=32, interpret=True
-    )
-    for k in fused.STATE_FIELDS:
-        np.testing.assert_array_equal(
-            np.asarray(Sx[k]), np.asarray(Sp[k]), err_msg=k
-        )
+    Sx = fused.rollout(dict(S0), 20)
+    Sl = reference_chain.step_loop(fused, dict(S0), 20)
+    reference_chain.assert_states_equal(Sx, Sl, fused.STATE_FIELDS)
     assert np.asarray(Sx["ep_idx"]).max() >= 2
 
 
@@ -362,18 +273,13 @@ def test_make_fused_accepts_sustainability():
 def test_sustainability_with_layout_pool_bit_identity():
     """Sustainability + layout pool compose: pooled res0_*/usable_half
     statics select per episode and the dynamic drape phase stays
-    XLA/pallas bit-identical."""
+    bit-identical between the scan driver and the step loop."""
     env = AIntelopeSavanna(**dict(SUSTAIN_KW, max_iterations=6))
     fused = FusedSavanna(env)
     S0 = fused.init_packed(seed=37, batch=32, layout_pool=2)
-    Sx = fused.rollout(dict(S0), 16, backend="xla")
-    Sp = fused.rollout(
-        dict(S0), 16, backend="pallas", tile=16, interpret=True
-    )
-    for k in fused.STATE_FIELDS:
-        np.testing.assert_array_equal(
-            np.asarray(Sx[k]), np.asarray(Sp[k]), err_msg=k
-        )
+    Sx = fused.rollout(dict(S0), 16)
+    Sl = reference_chain.step_loop(fused, dict(S0), 16)
+    reference_chain.assert_states_equal(Sx, Sl, fused.STATE_FIELDS)
     assert np.asarray(Sx["ep_idx"]).max() >= 1
 
 
@@ -460,7 +366,7 @@ def test_exact_reset_redraws_fresh_layout_each_episode():
     sb0 = np.asarray(S["sboard"]).copy()
     wall0 = np.asarray(S["wall"]).copy()
     counts0 = _lane_tile_counts(fused, sb0, wall0)
-    S = fused.rollout(S, 40, backend="xla")
+    S = fused.rollout(S, 40)
     assert np.asarray(S["stats_episodes"]).min() >= 2
     counts1 = _lane_tile_counts(fused, S["sboard"], S["wall"])
     for name in counts0:
@@ -489,33 +395,23 @@ def test_xla_pallas_bit_identity_exact_reset():
     fused = FusedSavanna(env)
     S0 = fused.init_packed(seed=47, batch=64)
     assert fused.exact_reset
-    Sx = fused.rollout(dict(S0), 20, backend="xla")
-    Sp = fused.rollout(
-        dict(S0), 20, backend="pallas", tile=32, interpret=True
-    )
-    for k in fused.STATE_FIELDS:
-        np.testing.assert_array_equal(
-            np.asarray(Sx[k]), np.asarray(Sp[k]), err_msg=k
-        )
+    Sx = fused.rollout(dict(S0), 20)
+    Sl = reference_chain.step_loop(fused, dict(S0), 20)
+    reference_chain.assert_states_equal(Sx, Sl, fused.STATE_FIELDS)
     assert np.asarray(Sx["stats_episodes"]).max() >= 2
 
 
 def test_xla_pallas_bit_identity_exact_reset_sustainability():
     """Redraw + dynamic resource curtains compose: fresh res curtains on
-    reset come from the same redraw and stay bit-identical across
-    backends."""
+    reset come from the same redraw and stay bit-identical between the
+    scan driver and the step loop."""
     env = AIntelopeSavanna(**dict(SUSTAIN_KW, max_iterations=6))
     fused = FusedSavanna(env)
     S0 = fused.init_packed(seed=53, batch=32)
     assert fused.exact_reset
-    Sx = fused.rollout(dict(S0), 16, backend="xla")
-    Sp = fused.rollout(
-        dict(S0), 16, backend="pallas", tile=16, interpret=True
-    )
-    for k in fused.STATE_FIELDS:
-        np.testing.assert_array_equal(
-            np.asarray(Sx[k]), np.asarray(Sp[k]), err_msg=k
-        )
+    Sx = fused.rollout(dict(S0), 16)
+    Sl = reference_chain.step_loop(fused, dict(S0), 16)
+    reference_chain.assert_states_equal(Sx, Sl, fused.STATE_FIELDS)
     assert np.asarray(Sx["stats_episodes"]).max() >= 1
 
 

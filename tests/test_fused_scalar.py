@@ -6,23 +6,20 @@ Mirrors the MA kernel suites (``tests/test_fused_island_ma.py``):
    injected into the per-env ``core.base.episode_step`` chain (the path
    that is lockstep-tested against the reference), and per-lane state,
    rewards, step types, and episode accounting must match exactly.
-2. **Bit-identity across backends** — XLA scan vs the pallas kernel
-   (interpreter on CPU).
+2. **Driver bit-identity** — the jitted ``lax.scan`` rollout vs a Python
+   loop over the jitted packed step.
 3. **Auto-reset bookkeeping** — truncation, FIRST restart, episode
    counts and final-return sums vs ``core.base.rollout`` semantics.
 4. **Fused PPO composes** — ``learners.ppo_fused.make_train_step`` runs
    on a scalar kernel (the in-kernel MLP policy + collection path).
 """
 
-import functools
 import os
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ai_safety_gridworlds_tpu.core import base
 from ai_safety_gridworlds_tpu.core.timestep import StepType
 from ai_safety_gridworlds_tpu.envs.boat_race import BoatRace
 from ai_safety_gridworlds_tpu.envs.boat_race_ex import BoatRaceEx
@@ -51,6 +48,7 @@ from ai_safety_gridworlds_tpu.envs.safe_interruptibility_ex import (
 )
 from ai_safety_gridworlds_tpu.envs.friend_foe import FriendFoe
 from ai_safety_gridworlds_tpu.envs.rocks_diamonds import RocksDiamonds
+from ai_safety_gridworlds_tpu.ops import reference_chain
 from ai_safety_gridworlds_tpu.ops.fused_scalar import (
     FusedAbsentSupervisor, FusedBoatRace, FusedBoatRaceEx,
     FusedConveyorBelt, FusedConveyorBeltEx, FusedDistributionalShift,
@@ -63,65 +61,6 @@ from ai_safety_gridworlds_tpu.ops.fused_scalar import (
 FIRST = int(StepType.FIRST)
 MID = int(StepType.MID)
 LAST = int(StepType.LAST)
-
-# Scalar-row extra state fields compared against per-env state attributes
-# (beyond pos/t/step-type/returns, which every case compares).
-EX_FIELDS = {
-    "drink_sat": "drink_satiation",
-    "food_sat": "food_satiation",
-    "drink_avail": "drink_availability",
-    "food_avail": "food_availability",
-    "drink_frac": "drink_fraction",
-    "food_frac": "food_fraction",
-    "safety": "safety",
-    "sup": "supervisor",
-    "level": "level",
-    "should": "should_interrupt",
-    "pressed": "pressed",
-    "drunk": "drunk",
-    "exploring": "exploring",
-    "obj_end": "obj_end",
-    "perf_adj": "perf_adjusted",
-    "rock_high": "rock_switch_high",
-    "dia_high": "diamond_switch_high",
-    "bandit": "bandit_type",
-    "showing": "showing_goals",
-}
-
-# Envs with per-episode reset draws: map the fused kernel's post-reset
-# state rows to the per-env ``initial_state(options=...)`` dict, so the
-# chain follows the KERNEL's draws instead of making its own.
-RESET_OPTS = {
-    FusedAbsentSupervisor: lambda S, b: {
-        "supervisor": np.bool_(np.asarray(S["sup"][0, b]) > 0.5)
-    },
-    FusedDistributionalShift: lambda S, b: {
-        "level": np.int32(np.asarray(S["level"][0, b]))
-    },
-    FusedSafeInterruptibility: lambda S, b: {
-        "should_interrupt": np.bool_(np.asarray(S["should"][0, b]) > 0.5)
-    },
-    FusedSafeInterruptibilityEx: lambda S, b: {
-        "should_interrupt": np.bool_(np.asarray(S["should"][0, b]) > 0.5)
-    },
-    FusedFriendFoe: lambda S, b: {
-        "bandit_type": np.int32(np.asarray(S["bandit"][0, b])),
-        "level": np.int32(np.asarray(S["level"][0, b])),
-        "policies": np.asarray(S["policies"][:, b]).reshape(3, 2),
-    },
-}
-
-
-def _ep_from_kernel(env, fused, S, b):
-    """Per-env EpisodeState mirroring a freshly-reset fused lane."""
-    opts = RESET_OPTS[type(fused)](S, b)
-    es = env.initial_state(jax.random.PRNGKey(7 * b + 1), opts)
-    return base.EpisodeState(
-        env_state=es,
-        last_step_type=jnp.int32(FIRST),
-        episode_return=env.zero_reward(),
-        hidden_return=jnp.float32(0.0),
-    )
 
 CASES = [
     (BoatRace, FusedBoatRace, {}),
@@ -205,169 +144,28 @@ _FUZZ_STEPS = int(os.environ.get("FUSED_FUZZ_STEPS", "0"))
 @pytest.mark.parametrize("fuzz_seed", range(_FUZZ_SEEDS))
 @pytest.mark.parametrize("case", CASES, ids=_ids)
 def test_fused_step_matches_per_env_chain(case, fuzz_seed):
+    """Per-lane reference chain driven by the fused step's own actions
+    (and, for reset-draw envs, its own per-episode draws)."""
     env_cls, fused_cls, kw = case
     env = env_cls(**kw)
     fused = fused_cls(env)
-    B, K = 6, (_FUZZ_STEPS or 25)
-    S = fused.init_packed(seed=11 + 1000 * fuzz_seed, batch=B)
-
-    # Per-lane reference chain driven by the fused kernel's own actions
-    # (and, for reset-draw envs, its own per-episode draws).
-    if type(fused) in RESET_OPTS:
-        eps = [_ep_from_kernel(env, fused, S, b) for b in range(B)]
-    else:
-        eps = [
-            base.episode_reset(env, jax.random.PRNGKey(100 + b))
-            for b in range(B)
-        ]
-    step_fn = jax.jit(functools.partial(base.episode_step, env))
-
-    total_eps = 0
-    sum_ret = 0.0
-    sum_hid = 0.0
-    for step in range(K):
-        S2, dbg = fused.step_xla(S, collect_draws=True)
-        actions = np.asarray(dbg["actions"])[0]
-        rewards = np.asarray(dbg["rewards"])  # [D, B]
-        for b in range(B):
-            if actions[b] < 0 and type(fused) in RESET_OPTS:
-                # Reset lane: follow the KERNEL's per-episode draw
-                # (visible in the post-step state rows) instead of
-                # letting episode_step draw its own options.
-                assert float(np.abs(rewards[:, b]).sum()) == 0.0
-                eps[b] = _ep_from_kernel(env, fused, S2, b)
-            else:
-                # Reset lanes draw -1; the chain resets on any action.
-                a = (
-                    int(actions[b]) if actions[b] >= 0
-                    else int(env.action_min)
-                )
-                eps[b], out = step_fn(eps[b], jnp.int32(a))
-                ref_r = np.atleast_1d(np.asarray(out.step.reward))
-                if actions[b] >= 0:
-                    np.testing.assert_allclose(
-                        ref_r, rewards[:, b], rtol=0, atol=1e-5,
-                        err_msg=f"step {step} lane {b} reward",
-                    )
-                else:
-                    assert float(np.abs(ref_r).sum()) == 0.0
-                if bool(out.step.game_over):
-                    total_eps += 1
-                    sum_ret += float(np.asarray(out.final_return).sum())
-                    sum_hid += float(out.final_hidden)
-            # State parity.
-            flat = int(eps[b].env_state.pos[0]) * fused.w + int(
-                eps[b].env_state.pos[1]
-            )
-            assert flat == int(np.asarray(S2["pos"][0, b])), (
-                f"step {step} lane {b} pos"
-            )
-            assert int(eps[b].env_state.t) == int(
-                np.asarray(S2["t"][0, b])
-            ), f"step {step} lane {b} t"
-            want_type = int(out.step.step_type) if actions[b] >= 0 else FIRST
-            assert want_type == int(
-                np.asarray(S2["step_types"][0, b])
-            ), f"step {step} lane {b} step_type"
-            np.testing.assert_allclose(
-                np.atleast_1d(np.asarray(eps[b].episode_return)),
-                np.asarray(S2["ep_ret"][:, b]),
-                rtol=0, atol=1e-5,
-                err_msg=f"step {step} lane {b} episode_return",
-            )
-            for sk, ek in EX_FIELDS.items():
-                if sk in S2 and hasattr(eps[b].env_state, ek):
-                    np.testing.assert_allclose(
-                        np.asarray(getattr(eps[b].env_state, ek)),
-                        np.asarray(S2[sk][0, b]),
-                        rtol=0, atol=1e-4,
-                        err_msg=f"step {step} lane {b} {sk}",
-                    )
-            if "visits" in S2 and hasattr(eps[b].env_state, "visits"):
-                np.testing.assert_allclose(
-                    np.asarray(eps[b].env_state.visits),
-                    np.asarray(S2["visits"][:, b]),
-                    rtol=0, atol=0,
-                    err_msg=f"step {step} lane {b} visits",
-                )
-            if "boxes" in S2:
-                es = eps[b].env_state
-                np.testing.assert_array_equal(
-                    np.asarray(es.boxes[:, 0] * fused.w + es.boxes[:, 1]),
-                    np.asarray(S2["boxes"][:, b]),
-                    err_msg=f"step {step} lane {b} boxes",
-                )
-                np.testing.assert_allclose(
-                    np.asarray(es.prev_penalty),
-                    np.asarray(S2["prev_pen"][:, b]),
-                    rtol=0, atol=1e-5,
-                    err_msg=f"step {step} lane {b} prev_penalty",
-                )
-                np.testing.assert_array_equal(
-                    np.asarray(es.coins).reshape(-1).astype(np.float32),
-                    np.asarray(S2["coins"][:, b]),
-                    err_msg=f"step {step} lane {b} coins",
-                )
-            if "obj" in S2:
-                es = eps[b].env_state
-                assert int(es.obj_pos[0]) * fused.w + int(
-                    es.obj_pos[1]
-                ) == int(np.asarray(S2["obj"][0, b])), (
-                    f"step {step} lane {b} obj_pos"
-                )
-            if "lumps" in S2:
-                es = eps[b].env_state
-                np.testing.assert_array_equal(
-                    np.asarray(
-                        es.lumps[:, 0] * fused.w + es.lumps[:, 1]
-                    ),
-                    np.asarray(S2["lumps"][:, b]),
-                    err_msg=f"step {step} lane {b} lumps",
-                )
-            if "policies" in S2:
-                np.testing.assert_allclose(
-                    np.asarray(eps[b].env_state.policies).reshape(-1),
-                    np.asarray(S2["policies"][:, b]),
-                    rtol=0, atol=1e-5,
-                    err_msg=f"step {step} lane {b} policies",
-                )
-            if "visits" in S2 and hasattr(eps[b].env_state, "visit_count"):
-                np.testing.assert_allclose(
-                    np.asarray(eps[b].env_state.visit_count).reshape(-1),
-                    np.asarray(S2["visits"][:, b]),
-                    rtol=0, atol=0,
-                    err_msg=f"step {step} lane {b} visit_count",
-                )
-            assert float(eps[b].hidden_return) == pytest.approx(
-                float(np.asarray(S2["hid_ret"][0, b]))
-            ), f"step {step} lane {b} hidden_return"
-        S = S2
-
-    assert total_eps == int(np.asarray(S["stats_episodes"]).sum())
-    assert sum_ret == pytest.approx(
-        float(np.asarray(S["stats_return"]).sum())
-    )
-    assert sum_hid == pytest.approx(
-        float(np.asarray(S["stats_hidden"]).sum())
-    )
+    S = fused.init_packed(seed=11 + 1000 * fuzz_seed, batch=6)
+    reference_chain.scalar_chain(env, fused, S, _FUZZ_STEPS or 25)
 
 
 @pytest.mark.parametrize("case", CASES[::2], ids=lambda c: c[0].__name__)
 def test_fused_xla_pallas_bit_identical(case):
+    """The jitted scan driver equals a Python loop over the jitted step."""
     env_cls, fused_cls, kw = case
     env = env_cls(**kw)
     fused = fused_cls(env)
-    B = 256
-    S0 = fused.init_packed(seed=3, batch=B)
-    Sx = fused.rollout(dict(S0), n_steps=40, backend="xla")
-    Sp = fused.rollout(dict(S0), n_steps=40, backend="pallas", tile=128)
-    for k in fused.STATE_FIELDS:
-        np.testing.assert_array_equal(
-            np.asarray(Sx[k]), np.asarray(Sp[k]), err_msg=k
-        )
+    S0 = fused.init_packed(seed=3, batch=64)
+    Sx = fused.rollout(dict(S0), n_steps=40)
+    Sl = reference_chain.step_loop(fused, dict(S0), 40)
+    reference_chain.assert_states_equal(Sx, Sl, fused.STATE_FIELDS)
     # Everything actually ran: boat_race truncates at 100 (no episodes in
     # 40 steps), island terminates fast — just require progress.
-    assert int(np.asarray(Sp["t"]).sum()) > 0
+    assert int(np.asarray(Sx["t"]).sum()) > 0
 
 
 def test_fused_autoreset_truncation_counts():
@@ -377,7 +175,7 @@ def test_fused_autoreset_truncation_counts():
     S = fused.init_packed(seed=0, batch=B)
     # 18 steps at max_iterations=5: each lane runs 5+1(reset)=6-step
     # cycles -> exactly 3 completed episodes per lane.
-    S = fused.rollout(S, n_steps=18, backend="xla")
+    S = fused.rollout(S, n_steps=18)
     np.testing.assert_array_equal(np.asarray(S["stats_episodes"]), 3)
     # Every completed boat_race episode yields <= -5 + 3*k observed.
     assert np.isfinite(np.asarray(S["stats_return"])).all()
@@ -396,7 +194,7 @@ def test_fused_ppo_composes_on_scalar_kernel():
     state = ppo_fused.init_train_state(
         fused, jax.random.PRNGKey(0), config=config, batch_size=128, seed=0
     )
-    train = ppo_fused.make_train_step(fused, config=config, tile=128)
+    train = ppo_fused.make_train_step(fused, config=config)
     state, metrics = train(state)
     for k, v in metrics.items():
         assert np.isfinite(np.asarray(v)).all(), k
@@ -412,78 +210,16 @@ def test_fused_tomato_matches_per_env_with_injected_draws(crmdp):
     the kernel's reset-sweep uniforms via ``reset_dry_draws``."""
     env = (TomatoCRMDP if crmdp else TomatoWatering)()
     fused = FusedTomatoWatering(env)
-    B, K = 5, 30
-    S = fused.init_packed(seed=4, batch=B)
-
-    # Per-lane chain state rebuilt from the packed initial state (the
-    # init reset sweep is host-drawn inside init_packed).
-    states = []
-    for b in range(B):
-        st = env.initial_state(
-            jax.random.PRNGKey(b),
-            options={"reset_dry_draws": jnp.full((fused.nt,), 2.0)},
-        )
-        st = st.replace(
-            watered=jnp.asarray(np.asarray(S["watered"][:, b]) > 0.5)
-        )
-        states.append(st)
-    last_types = [FIRST] * B
-    ep_ret = [0.0] * B
-    step_jit = jax.jit(env.step)
-
-    for step in range(K):
-        S2, dbg = fused.step_xla(S, collect_draws=True)
-        actions = np.asarray(dbg["actions"])[0]
-        rewards = np.asarray(dbg["rewards"])[0]
-        u_phys = np.asarray(dbg["u_phys"])
-        u_reset = np.asarray(dbg["u_reset"])
-        for b in range(B):
-            if actions[b] < 0:
-                # Reset lane: replay the kernel's reset sweep.
-                states[b] = env.initial_state(
-                    jax.random.PRNGKey(100 + b),
-                    options={
-                        "reset_dry_draws": jnp.asarray(u_reset[:, b])
-                    },
-                )
-                last_types[b] = FIRST
-                ep_ret[b] = 0.0
-                assert rewards[b] == 0.0
-            else:
-                states[b], out = step_jit(
-                    states[b], jnp.int32(int(actions[b])),
-                    options={"dry_draws": jnp.asarray(u_phys[:, b])},
-                )
-                last_types[b] = int(out.step_type)
-                ep_ret[b] += float(out.reward)
-                np.testing.assert_allclose(
-                    float(out.reward), rewards[b], rtol=0, atol=1e-5,
-                    err_msg=f"step {step} lane {b} reward",
-                )
-            es = states[b]
-            flat = int(es.pos[0]) * fused.w + int(es.pos[1])
-            assert flat == int(np.asarray(S2["pos"][0, b]))
-            assert last_types[b] == int(np.asarray(S2["step_types"][0, b]))
-            np.testing.assert_array_equal(
-                np.asarray(es.watered).astype(np.float32),
-                np.asarray(S2["watered"][:, b]),
-                err_msg=f"step {step} lane {b} watered",
-            )
-            assert ep_ret[b] == pytest.approx(
-                float(np.asarray(S2["ep_ret"][0, b])), abs=1e-4
-            )
-        S = S2
+    S = fused.init_packed(seed=4, batch=5)
+    reference_chain.tomato_chain(env, fused, S, 30)
 
 
 def test_fused_tomato_xla_pallas_bit_identical():
     fused = FusedTomatoWatering(TomatoWatering())
-    S0 = fused.init_packed(seed=6, batch=256)
-    Sx = fused.rollout(dict(S0), n_steps=50, backend="xla")
-    Sp = fused.rollout(dict(S0), n_steps=50, backend="pallas", tile=128)
-    for k in fused.STATE_FIELDS:
-        np.testing.assert_array_equal(
-            np.asarray(Sx[k]), np.asarray(Sp[k]), err_msg=k
-        )
+    S0 = fused.init_packed(seed=6, batch=64)
+    Sx = fused.rollout(dict(S0), n_steps=50)
+    Sl = reference_chain.step_loop(fused, dict(S0), 50)
+    reference_chain.assert_states_equal(Sx, Sl, fused.STATE_FIELDS)
 
 
 def test_fused_whisky_human_mode_falls_back():
@@ -518,7 +254,7 @@ ALL_FUSED = [
 def test_fused_ppo_collection_composes_on_every_kernel(env_cls, fused_cls):
     """Every fused scalar kernel implements the full contract: in-kernel
     MLP policy, trajectory collection, and one PPO update produce finite
-    metrics (tiny CPU-sized shapes, XLA backend)."""
+    metrics (tiny CPU-sized shapes)."""
     from ai_safety_gridworlds_tpu.learners import ppo_fused
 
     fused = fused_cls(env_cls())
@@ -528,7 +264,7 @@ def test_fused_ppo_collection_composes_on_every_kernel(env_cls, fused_cls):
     state = ppo_fused.init_train_state(
         fused, jax.random.PRNGKey(1), config=config, batch_size=32, seed=0
     )
-    train = ppo_fused.make_train_step(fused, config=config, backend="xla")
+    train = ppo_fused.make_train_step(fused, config=config)
     state, metrics = train(state)
     for k, v in metrics.items():
         assert np.isfinite(np.asarray(v)).all(), (fused_cls.__name__, k)

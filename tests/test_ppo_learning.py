@@ -1,6 +1,6 @@
 """Learning-quality gates for the PPO learners.
 
-The mechanics suites (``test_fused_ppo.py``) pin backend bit-identity and
+The mechanics suites (``test_fused_ppo.py``) pin driver bit-identity and
 trajectory equivalence but nothing there asserts the learners *learn* or
 that the advantage/surrogate math is *correct*. These tests close both
 holes:
@@ -110,7 +110,7 @@ def _record_fused(T=12, B=16, seed=3, hidden=16):
         fused.amax - fused.amin + 1, hidden=hidden,
     )
     S0 = fused.init_packed(seed=seed + 1, batch=B)
-    _, traj, boot = fused.rollout_collect(S0, params, T, backend="xla")
+    _, traj, boot = fused.rollout_collect(S0, params, T)
     return fused, params, {k: np.asarray(v) for k, v in traj.items()}, (
         np.asarray(boot)
     )
@@ -291,15 +291,15 @@ def test_fused_ppo_learns_island_ma():
     state = ppo_fused.init_train_state(
         fused, jax.random.PRNGKey(0), batch_size=64, seed=3, config=config
     )
-    train = ppo_fused.make_train_step(fused, config, backend="xla")
+    train = ppo_fused.make_train_step(fused, config)
     ev0 = ppo_fused.evaluate(
-        fused, state.params, n_steps=128, batch=64, seed=9, backend="xla"
+        fused, state.params, n_steps=128, batch=64, seed=9
     )
     for _ in range(40):
         state, metrics = train(state)
     assert np.isfinite(float(metrics["mean_reward"]))
     ev1 = ppo_fused.evaluate(
-        fused, state.params, n_steps=128, batch=64, seed=9, backend="xla"
+        fused, state.params, n_steps=128, batch=64, seed=9
     )
     r0 = float(ev0["mean_episode_return"])
     r1 = float(ev1["mean_episode_return"])
@@ -327,15 +327,15 @@ def test_fused_ppo_learns_firemaker():
     state = ppo_fused.init_train_state(
         fused, jax.random.PRNGKey(0), batch_size=64, seed=3, config=config
     )
-    train = ppo_fused.make_train_step(fused, config, backend="xla")
+    train = ppo_fused.make_train_step(fused, config)
     ev0 = ppo_fused.evaluate(
-        fused, state.params, n_steps=128, batch=64, seed=9, backend="xla"
+        fused, state.params, n_steps=128, batch=64, seed=9
     )
     for _ in range(200):
         state, metrics = train(state)
     assert np.isfinite(float(metrics["mean_reward"]))
     ev1 = ppo_fused.evaluate(
-        fused, state.params, n_steps=128, batch=64, seed=9, backend="xla"
+        fused, state.params, n_steps=128, batch=64, seed=9
     )
     r0 = float(ev0["mean_episode_return"])
     r1 = float(ev1["mean_episode_return"])
@@ -361,15 +361,15 @@ def test_fused_ppo_learns_savanna():
     state = ppo_fused.init_train_state(
         fused, jax.random.PRNGKey(0), batch_size=64, seed=3, config=config
     )
-    train = ppo_fused.make_train_step(fused, config, backend="xla")
+    train = ppo_fused.make_train_step(fused, config)
     ev0 = ppo_fused.evaluate(
-        fused, state.params, n_steps=128, batch=64, seed=9, backend="xla"
+        fused, state.params, n_steps=128, batch=64, seed=9
     )
     for _ in range(60):
         state, metrics = train(state)
     assert np.isfinite(float(metrics["mean_reward"]))
     ev1 = ppo_fused.evaluate(
-        fused, state.params, n_steps=128, batch=64, seed=9, backend="xla"
+        fused, state.params, n_steps=128, batch=64, seed=9
     )
     r0 = float(ev0["mean_episode_return"])
     r1 = float(ev1["mean_episode_return"])
@@ -440,15 +440,15 @@ def test_fused_ppo_learns_island_navigation_scalar_kernel():
     state = ppo_fused.init_train_state(
         fused, jax.random.PRNGKey(0), batch_size=64, seed=3, config=config
     )
-    train = ppo_fused.make_train_step(fused, config, backend="xla")
+    train = ppo_fused.make_train_step(fused, config)
     ev0 = ppo_fused.evaluate(
-        fused, state.params, n_steps=128, batch=64, seed=9, backend="xla"
+        fused, state.params, n_steps=128, batch=64, seed=9
     )
     for _ in range(40):
         state, metrics = train(state)
     assert np.isfinite(float(metrics["mean_reward"]))
     ev1 = ppo_fused.evaluate(
-        fused, state.params, n_steps=128, batch=64, seed=9, backend="xla"
+        fused, state.params, n_steps=128, batch=64, seed=9
     )
     r0 = float(ev0["mean_episode_return"])
     r1 = float(ev1["mean_episode_return"])

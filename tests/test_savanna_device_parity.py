@@ -1,7 +1,7 @@
 """Cross-validation of savanna's batched device kernel vs its host mirror.
 
 The host path (``host_substep``) consumes the env Generator in exact
-reference order; the device path (``engine_substep``) is the batched TPU
+reference order; the device path (``engine_substep``) is the batched device
 kernel. Here both are driven in lockstep from the same initial state, with
 the host's random OUTCOMES (post-walk predator curtain, post-spawn resource
 curtains) injected into the device sub-step via ``inj_*`` options — so every

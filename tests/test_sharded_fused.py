@@ -1,7 +1,7 @@
-"""Multi-chip composition tests: the fused pallas kernels under shard_map.
+"""Multi-device composition tests: the fused rollouts under shard_map.
 
-These validate the composition that runs on real multi-chip hardware —
-``pallas_call`` rollouts with the lane (batch) axis sharded over a
+These validate the composition that runs on real multi-GPU hardware —
+fused rollouts with the lane (batch) axis sharded over a
 ``jax.sharding.Mesh`` — on the 8-virtual-device CPU mesh (conftest forces
 ``--xla_force_host_platform_device_count=8``).
 """
@@ -40,8 +40,8 @@ def _lane_split(fused, S, mesh, statics=None):
 
 @pytest.mark.parametrize("kernel", ["island", "savanna"])
 def test_sharded_pallas_rollout_bit_identical(kernel):
-    """The pallas rollout under shard_map (each device running the kernel
-    on its lane shard) is bit-identical to the single-device rollout —
+    """The fused rollout under shard_map (each device running the scan on
+    its lane shard) is bit-identical to the single-device rollout —
     lanes are independent, so sharding must not change anything."""
     if kernel == "island":
         from ai_safety_gridworlds_tpu.envs.island_navigation_ex_ma import (
@@ -63,15 +63,13 @@ def test_sharded_pallas_rollout_bit_identical(kernel):
     mesh = _mesh()
     B = 4 * N_DEV
     S = fused.init_packed(seed=3, batch=B)
-    ref = fused.rollout(dict(S), 5, backend="pallas", tile=4)
+    ref = fused.rollout(dict(S), 5)
 
     S_sh, statics_sh, specs = _lane_split(fused, S, mesh)
     state_specs = {k: P(None, "data") for k in S}
 
     def body(S_local, statics_local):
-        out = fused.rollout(
-            S_local, 5, backend="pallas", tile=4, statics=statics_local
-        )
+        out = fused.rollout(S_local, 5, statics=statics_local)
         reward_sum = jax.lax.psum(
             jnp.sum(S_local["stats_rewards"]), "data"
         )
@@ -93,8 +91,8 @@ def test_sharded_pallas_rollout_bit_identical(kernel):
 
 
 def test_sharded_fused_ppo_train_step():
-    """One data-parallel fused-PPO update on the 8-device mesh: the pallas
-    collection kernel runs per-device inside shard_map, gradients pmean
+    """One data-parallel fused-PPO update on the 8-device mesh: the
+    collection scan runs per-device inside shard_map, gradients pmean
     across the mesh, params stay replicated and finite, and the update
     matches the single-device train step's direction (same trajectory:
     identical lanes, pmean of equal shards == global mean up to per-shard
@@ -114,7 +112,7 @@ def test_sharded_fused_ppo_train_step():
         fused, jax.random.PRNGKey(0), batch_size=4 * N_DEV, config=config
     )
     train_step, shard_state = ppo_fused.make_sharded_train_step(
-        fused, mesh, config=config, tile=4
+        fused, mesh, config=config
     )
     state = shard_state(state)
     state2, metrics = train_step(state)
@@ -151,7 +149,7 @@ def test_sharded_ppo_checkpoint_roundtrip(tmp_path):
         fused, jax.random.PRNGKey(3), batch_size=2 * N_DEV, config=config
     )
     train_step, shard_state = ppo_fused.make_sharded_train_step(
-        fused, mesh, config=config, tile=2
+        fused, mesh, config=config
     )
     state = shard_state(state)
     state, _ = train_step(state)
